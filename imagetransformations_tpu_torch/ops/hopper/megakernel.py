@@ -1,0 +1,302 @@
+"""Fused blur -> 3-shear rotation (-> grayscale) on NHWC uint8 batches.
+
+PyTorch counterpart of ``imagetransformations_tpu/ops/pallas/megakernel.py``
+``fused_blur_rotate_image``. Two hand-written CUDA kernels carry it on the
+card (``csrc/luma_blur_rotate.cu``, ``csrc/rgb_blur_rotate.cu``); beside
+each wrapper sits its plain PyTorch version, which repeats the kernel's
+arithmetic op for op.
+
+A wrapper looks at the tensor it is given: on the CPU it runs the plain
+version, on a CUDA device it launches the kernel (or raises). It never
+falls back from one to the other.
+
+Semantics (oracles in the JAX package):
+
+- ``stream=True``: f32 intermediates, one final quantization
+  (``oracle/fast_warp.fused_stream_chain``). With grayscale on 3 channels,
+  the luma is formed first and the blur and shears run on that one plane.
+- ``stream=False``: the reference's per-op uint8 rounding: rint after the
+  blur, trunc after each shear, then PIL L24 grayscale
+  (``gaussian_blur -> fast_warp.rotate_3shear -> grayscale_rgb``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from imagetransformations_tpu_torch.core.image import to_uint8_rint, to_uint8_trunc
+from imagetransformations_tpu_torch.ops.hopper import _lib
+from imagetransformations_tpu_torch.ops.hopper.shear import _paeth_params, _row_shifts
+from imagetransformations_tpu_torch.ops.stencil import cv2_gaussian_ksize, gaussian_taps
+
+#: kernel launches, by kernel: each wrapper call that launches its CUDA
+#: kernel pair (blur launch + shear launch) adds one. The luma kernel counts
+#: under "luma_blur_rotate_packed" when it runs the many-images-per-block
+#: geometry (the counterpart of _mega_gray1_packed_kernel).
+LAUNCHES = {"luma_blur_rotate": 0, "luma_blur_rotate_packed": 0, "rgb_blur_rotate": 0}
+
+_LUMA_WEIGHTS = (19595, 38470, 7471)  # PIL L24 weights of R, G, B
+
+
+# --------------------------------------------------------------- parameters
+
+
+@functools.lru_cache(maxsize=64)
+def _params(h: int, w: int, radius: float, angle_deg: float, device: torch.device):
+    """(taps f32 [2p+1], p, k1 i32 [h], f1 f32 [h], k2 i32 [w], f2 f32 [w])
+    on ``device``. Shifts are f32 from the f64 host math; k = floor(s) and
+    f = s - floor(s) computed in f32, as the JAX package does."""
+    if radius > 0:
+        ksize = cv2_gaussian_ksize(radius)
+        taps = gaussian_taps(ksize, radius).astype(np.float32)
+    else:
+        taps = np.ones(1, np.float32)
+    a, b = _paeth_params(angle_deg)
+    sx = _row_shifts(h, a, h / 2.0)
+    sy = _row_shifts(w, b, w / 2.0)
+    arrays = (
+        taps,
+        np.floor(sx).astype(np.int32), (sx - np.floor(sx)).astype(np.float32),
+        np.floor(sy).astype(np.int32), (sy - np.floor(sy)).astype(np.float32),
+    )
+    t, k1, f1, k2, f2 = (torch.from_numpy(v).to(device) for v in arrays)
+    return t, (len(taps) - 1) // 2, k1, f1, k2, f2
+
+
+def _images_per_block(n: int, h: int) -> int:
+    """Launch geometry of the luma kernel: an even batch of images under 128
+    rows (CIFAR 32x32), the batches the JAX package routes to its packed
+    kernel, runs 2 images a block. Two measured fastest of 1, 2, 4, 8 and 16
+    at 4096x32x32 on the H100 (chip_smoke.py, phase geometry)."""
+    return 2 if h < 128 and n % 2 == 0 else 1
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _reflect101(i: torch.Tensor, n: int) -> torch.Tensor:
+    i = i.abs()
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
+
+
+def _blur_along(v: torch.Tensor, taps: torch.Tensor, p: int, dim: int) -> torch.Tensor:
+    """cv2 Gaussian pass along ``dim`` with reflect-101 borders: centre tap
+    first, then the mirrored pairs as acc + taps[t] * (lo + hi)."""
+    size = v.shape[dim]
+    idx = _reflect101(torch.arange(-p, size + p, device=v.device), size)
+    vp = v.index_select(dim, idx)
+
+    def at(t: int) -> torch.Tensor:
+        return vp.narrow(dim, t, size)
+
+    acc = taps[p] * at(p)
+    for t in range(p):
+        acc = acc + taps[t] * (at(t) + at(2 * p - t))
+    return acc
+
+
+def _lerp(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    # v + f * (nbr - v), three separately rounded ops (not torch.lerp, whose
+    # formula changes at f >= 0.5)
+    return a + f * (b - a)
+
+
+def _take(v: torch.Tensor, idx: torch.Tensor, dim: int, fill: float) -> torch.Tensor:
+    """v gathered at ``idx`` along ``dim``; indices off the canvas read fill."""
+    size = v.shape[dim]
+    got = torch.gather(v, dim, idx.clamp(0, size - 1).expand(v.shape))
+    return torch.where((idx >= 0) & (idx < size), got, fill)
+
+
+def _trunc_u8(v: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.trunc(v), 0.0, 255.0)
+
+
+def _shears(v, k1, f1, k2, f2, fill: float, strict: bool) -> torch.Tensor:
+    """The three Paeth shears of f32 planes v [n, C, h, w]: x by row, y by
+    column, x by row; fill off the canvas; u8 trunc after each if strict.
+    k1/f1 are [h] or [n, h], k2/f2 are [w] or [n, w]."""
+    h, w = v.shape[-2:]
+    k1, f1 = k1.reshape(-1, 1, h, 1), f1.reshape(-1, 1, h, 1)
+    k2, f2 = k2.reshape(-1, 1, 1, w), f2.reshape(-1, 1, 1, w)
+    xs = torch.arange(w, device=v.device).view(1, 1, 1, w) + k1
+    ys = torch.arange(h, device=v.device).view(1, 1, h, 1) + k2
+
+    def shear(v, idx, f, dim):
+        out = _lerp(_take(v, idx, dim, fill), _take(v, idx + 1, dim, fill), f)
+        return _trunc_u8(out) if strict else out
+
+    v = shear(v, xs, f1, 3)
+    v = shear(v, ys, f2, 2)
+    return shear(v, xs, f1, 3)
+
+
+def _replicate3(q: torch.Tensor) -> torch.Tensor:
+    """[n, h, w] u8 -> [n, h, w, 3]."""
+    return q[..., None].expand(*q.shape, 3).contiguous()
+
+
+def luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill: int) -> torch.Tensor:
+    """Plain version of ``luma_blur_rotate``: exact integer L24 luma, blur X
+    then Y, three f32 shears, floor(v + 0.5), replicated to 3 channels."""
+    xi = x.to(torch.int32)
+    r, g, b = xi[..., 0], xi[..., 1], xi[..., 2]
+    wr, wg, wb = _LUMA_WEIGHTS
+    lum = (g * wg + r * wr) + b * wb  # < 2^24: exact in f32
+    v = (lum.to(torch.float32) * (1.0 / 65536.0))[:, None]  # [n, 1, h, w]
+    v = _blur_along(_blur_along(v, taps, p, 3), taps, p, 2)
+    v = _shears(v, k1, f1, k2, f2, float(fill), strict=False)
+    q = (v[:, 0] + 0.5).to(torch.int32).clamp(0, 255).to(torch.uint8)
+    return _replicate3(q)
+
+
+def _l24(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """PIL convert('L') on f32 values: L24 fixed point floored by the int cast."""
+    wr, wg, wb = _LUMA_WEIGHTS
+    sum3 = (g * float(wg) + r * float(wr)) + b * float(wb)
+    return (sum3 * (1.0 / 65536.0) + 0.5).to(torch.int32).clamp(0, 255).to(torch.uint8)
+
+
+def rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill: int, strict: bool,
+                          grayscale: bool, identity: bool) -> torch.Tensor:
+    """Plain version of ``rgb_blur_rotate``: per-channel blur Y then X [rint
+    if strict], three shears [trunc after each if strict] unless identity,
+    then PIL grayscale, or rint (identity) / trunc (rotation)."""
+    v = x.permute(0, 3, 1, 2).to(torch.float32)  # [n, c, h, w]
+    v = _blur_along(_blur_along(v, taps, p, 2), taps, p, 3)
+    if strict:
+        v = torch.round(v)
+    if not identity:
+        v = _shears(v, k1, f1, k2, f2, float(fill), strict)
+    if grayscale:
+        return _replicate3(_l24(v[:, 0], v[:, 1], v[:, 2]))
+    q = to_uint8_rint(v) if identity else to_uint8_trunc(v)
+    return q.permute(0, 2, 3, 1).contiguous()
+
+
+# ------------------------------------------------------------ kernel wrappers
+
+
+def _check_cuda(x: torch.Tensor, *params: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
+    if x.dtype != torch.uint8 or x.ndim != 4 or not x.is_contiguous():
+        raise ValueError("expected a contiguous NHWC uint8 tensor")
+    for t in params:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("kernel parameters must be contiguous and on the image's device")
+
+
+def _shift_strides(k1: torch.Tensor, k2: torch.Tensor, n: int) -> tuple[int, int]:
+    """Per-image element strides of the shift arrays: 0 when one set ([h],
+    [w]) serves the whole batch, h / w for per-image sets ([n, h], [n, w])."""
+    h, w = k1.shape[-1], k2.shape[-1]
+    if k1.ndim == 1 and k2.ndim == 1:
+        return 0, 0
+    if k1.shape == (n, h) and k2.shape == (n, w):
+        return h, w
+    raise ValueError("shifts must be [h] and [w], or [n, h] and [n, w]")
+
+
+def luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0,
+                     images_per_block: int = 1) -> torch.Tensor:
+    """Grayscale-first blur -> rotation: NHWC u8 RGB -> NHWC u8 (luma x 3).
+
+    On CUDA: ``csrc/luma_blur_rotate.cu``, ``images_per_block`` images
+    looped inside each block; on the CPU: the plain version."""
+    if x.device.type == "cpu":
+        return luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill)
+    _check_cuda(x, taps, k1, f1, k2, f2)
+    n, h, w, c = x.shape
+    if c != 3:
+        raise ValueError("luma_blur_rotate needs 3 channels")
+    sh, sw = _shift_strides(k1, k2, n)
+    name = "luma_blur_rotate"
+    lib = _lib.load(name)
+    with torch.cuda.device(x.device):
+        scratch = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
+        out = torch.empty_like(x)
+        err = lib.luma_blur_rotate(
+            x.data_ptr(), scratch.data_ptr(), out.data_ptr(), taps.data_ptr(), p,
+            k1.data_ptr(), f1.data_ptr(), k2.data_ptr(), f2.data_ptr(), sh, sw,
+            n, h, w, int(fill), int(images_per_block),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _lib.check(name, err)
+    LAUNCHES["luma_blur_rotate_packed" if images_per_block > 1 else name] += 1
+    return out
+
+
+def rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, strict: bool = False,
+                    grayscale: bool = False, identity: bool = False) -> torch.Tensor:
+    """Per-channel blur -> rotation (-> PIL grayscale): NHWC u8 -> NHWC u8.
+
+    On CUDA: ``csrc/rgb_blur_rotate.cu``; on the CPU: the plain version."""
+    if x.device.type == "cpu":
+        return rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill, strict,
+                                     grayscale, identity)
+    _check_cuda(x, taps, k1, f1, k2, f2)
+    n, h, w, c = x.shape
+    if grayscale and c != 3:
+        raise ValueError("grayscale needs 3 channels")
+    sh, sw = _shift_strides(k1, k2, n)
+    name = "rgb_blur_rotate"
+    lib = _lib.load(name)
+    with torch.cuda.device(x.device):
+        scratch = torch.empty((n, c, h, w), dtype=torch.float32, device=x.device)
+        out = torch.empty_like(x)
+        err = lib.rgb_blur_rotate(
+            x.data_ptr(), scratch.data_ptr(), out.data_ptr(), taps.data_ptr(), p,
+            k1.data_ptr(), f1.data_ptr(), k2.data_ptr(), f2.data_ptr(), sh, sw,
+            n, h, w, c, int(fill), int(strict), int(grayscale), int(identity),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _lib.check(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+# ------------------------------------------------------------ entry point
+
+
+def fused_blur_rotate_image(
+    img: torch.Tensor,
+    radius: float,
+    angle_deg: float,
+    fill: int = 0,
+    grayscale_out: bool = False,
+    stream: bool = False,
+) -> torch.Tensor:
+    """Fused blur -> 3-shear rotation (-> grayscale). NHWC uint8 -> NHWC uint8,
+    on the tensor's device.
+
+    ``stream=False``: per-op uint8 quantization — gaussian_blur -> oracle
+    rotate_3shear (-> grayscale), the reference's image-at-a-time semantics.
+    ``stream=True``: f32 streaming with ONE final quantization (the fast-mode
+    chain contract; oracle fast_warp.fused_stream_chain). |angle_deg| <= 45.
+    """
+    if not isinstance(img, torch.Tensor) or img.ndim != 4 or img.dtype != torch.uint8:
+        raise ValueError("expected an NHWC uint8 tensor")
+    radius, angle_deg = float(radius), float(angle_deg)
+    if abs(angle_deg) > 45.0:
+        raise NotImplementedError(
+            "|angle| > 45 runs the affine warp, not yet ported (ROADMAP A.6)"
+        )
+    n, h, w, c = img.shape
+    if grayscale_out and c != 3:
+        raise ValueError("grayscale_out needs 3 channels")
+    taps, p, k1, f1, k2, f2 = _params(h, w, radius, angle_deg, img.device)
+    if h < p + 2 or w < p + 2:
+        raise NotImplementedError(
+            "images smaller than the blur window + 2 take the XLA blur in the "
+            "JAX package, not yet ported (ROADMAP A.6)"
+        )
+    x = img.contiguous()
+    if stream and grayscale_out and (angle_deg != 0.0 or radius > 0):
+        return luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill,
+                                images_per_block=_images_per_block(n, h))
+    return rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, strict=not stream,
+                           grayscale=grayscale_out, identity=angle_deg == 0.0)
