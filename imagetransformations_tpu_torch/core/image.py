@@ -13,6 +13,7 @@ Quantization back to uint8 is op-dependent:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,6 +30,30 @@ def restore_layout(x: torch.Tensor, was_single: bool) -> torch.Tensor:
     return x[0] if was_single else x
 
 
+def entry_device(device, entry: str) -> torch.device:
+    """The device an entry point runs on: ``None`` means "cuda", which
+    raises without a GPU instead of running on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{entry} runs on CUDA by default and no CUDA device is available; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
+
+
+def to_device(images, device: torch.device) -> torch.Tensor:
+    """A numpy array or a tensor as a tensor on ``device``."""
+    if not isinstance(images, torch.Tensor):
+        images = torch.from_numpy(np.ascontiguousarray(images))
+    return images.to(device)
+
+
+def as_float(x: torch.Tensor) -> torch.Tensor:
+    """uint8 [0,255] -> float32 [0,255] (identity for float32 inputs)."""
+    return x if x.dtype == torch.float32 else x.to(torch.float32)
+
+
 def to_uint8_trunc(x: torch.Tensor) -> torch.Tensor:
     """clip to [0,255] then truncate toward zero (PIL blend C-cast semantics)."""
     return torch.clamp(torch.trunc(x), 0.0, 255.0).to(torch.uint8)
@@ -37,3 +62,11 @@ def to_uint8_trunc(x: torch.Tensor) -> torch.Tensor:
 def to_uint8_rint(x: torch.Tensor) -> torch.Tensor:
     """round-half-even then clip (cv2.convertScaleAbs / cvRound semantics)."""
     return torch.clamp(torch.round(x), 0.0, 255.0).to(torch.uint8)
+
+
+def finalize(x: torch.Tensor, like_dtype: torch.dtype, mode: str = "rint") -> torch.Tensor:
+    """The f32 result in the caller's dtype: u8 by ``mode`` ("trunc" or
+    "rint") for uint8 callers, unchanged otherwise."""
+    if like_dtype == torch.uint8:
+        return to_uint8_trunc(x) if mode == "trunc" else to_uint8_rint(x)
+    return x

@@ -4,7 +4,10 @@
 // Replaces: imagetransformations_tpu/ops/pallas/megakernel.py
 //   _mega_gray1_kernel        (one image per launch step)
 //   _mega_gray1_packed_kernel (many small images per slab, h < 128)
-// Both compute the same function; here they are one kernel pair with two
+//   _mega_traced_gray1_kernel (per-image angles: shifts per image, stride
+//                              h / w; its log-routed shifts and group
+//                              minima exist only for the TPU's lane rolls)
+// All compute the same function; here they are one kernel pair with two
 // launch geometries: images_per_block = 1, or P > 1 images looped inside
 // each block. The output does not depend on the geometry.
 //

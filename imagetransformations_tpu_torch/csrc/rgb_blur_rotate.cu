@@ -10,7 +10,12 @@
 //                 trunc after every shear, then PIL L24 grayscale
 //                 (oracle: gaussian_blur -> fast_warp.rotate_3shear ->
 //                 grayscale_rgb);
-//   angle 0     : the shears are skipped (identity rotation).
+//   angle 0     : the shears are skipped (identity rotation), rint.
+// Also replaces _mega_traced_kernel (per-image angles): the shifts then
+// come per image (stride h / w) and so does the identity flag (stride 1).
+// The traced Pallas kernel always shears and picks rint for an angle-0
+// image; a shear at angle 0 (k = 0, f = 0) is exact, v + 0*(nbr - v) == v,
+// so skipping it for that image gives the same bits.
 // The blur runs the Y pass first, then the X pass, per channel, with
 // reflect-101 borders and f32 taps.
 //
@@ -93,23 +98,25 @@ __global__ void rgb_shear_kernel(const float* __restrict__ blurred,
                                  const float* __restrict__ f2,
                                  int shift_stride_h, int shift_stride_w, int n,
                                  int h, int w, int c, float fill, bool grayscale,
-                                 bool identity) {
+                                 const int* __restrict__ identity,
+                                 int identity_stride) {
   const int xx = blockIdx.x * blockDim.x + threadIdx.x;
   const int yy = blockIdx.y * blockDim.y + threadIdx.y;
   if (xx >= w || yy >= h) return;
   for (int img = blockIdx.z; img < n; img += gridDim.z) {
     const itt::Shifts s{k1 + (size_t)img * shift_stride_h, f1 + (size_t)img * shift_stride_h,
                         k2 + (size_t)img * shift_stride_w, f2 + (size_t)img * shift_stride_w};
+    const bool ident = identity[(size_t)img * identity_stride] != 0;
     const float* planes = blurred + (size_t)img * c * h * w;
     uint8_t* o = out + (((size_t)img * h + yy) * w + xx) * c;
     float rgb[3];
     for (int ch = 0; ch < c; ++ch) {
       const float* B = planes + (size_t)ch * h * w;
-      const float v = identity ? B[yy * w + xx]
+      const float v = ident ? B[yy * w + xx]
                                : itt::shear3<STRICT>(B, yy, xx, h, w, s, fill);
       if (grayscale) {
         rgb[ch] = v;  // c == 3, checked by the caller
-      } else if (identity) {
+      } else if (ident) {
         o[ch] = (uint8_t)fminf(fmaxf(rintf(v), 0.0f), 255.0f);
       } else {
         o[ch] = (uint8_t)itt::trunc_u8(v);
@@ -124,7 +131,7 @@ cudaError_t launch(const void* x, void* scratch, void* out, const void* taps,
                    int p, const void* k1, const void* f1, const void* k2,
                    const void* f2, int shift_stride_h, int shift_stride_w,
                    int n, int h, int w, int c, int fill, bool grayscale,
-                   bool identity, cudaStream_t st) {
+                   const void* identity, int identity_stride, cudaStream_t st) {
   const size_t smem = sizeof(float) * itt::blur_smem_floats(p);
   cudaError_t err = itt::allow_smem(rgb_blur_kernel<STRICT>, smem);
   if (err != cudaSuccess) return err;
@@ -145,7 +152,8 @@ cudaError_t launch(const void* x, void* scratch, void* out, const void* taps,
       static_cast<const float*>(scratch), static_cast<uint8_t*>(out),
       static_cast<const int*>(k1), static_cast<const float*>(f1),
       static_cast<const int*>(k2), static_cast<const float*>(f2), shift_stride_h,
-      shift_stride_w, n, h, w, c, static_cast<float>(fill), grayscale, identity);
+      shift_stride_w, n, h, w, c, static_cast<float>(fill), grayscale,
+      static_cast<const int*>(identity), identity_stride);
   return cudaGetLastError();
 }
 
@@ -155,21 +163,23 @@ cudaError_t launch(const void* x, void* scratch, void* out, const void* taps,
 // taps: f32 [2p + 1]; k1/f1: [h] and k2/f2: [w] per image, images
 // shift_stride_h / shift_stride_w elements apart (0: one set for all).
 // strict: per-op u8 quantization (stream=False); grayscale needs c == 3;
-// identity: angle 0, no shears. Launches on `stream`; returns
-// cudaGetLastError() (0 on success).
+// identity: i32 flags, 1 for an image at angle 0 (no shears, rint), one
+// per image identity_stride elements apart (0: one flag for all).
+// Launches on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int rgb_blur_rotate(const void* x, void* scratch, void* out,
                                const void* taps, int p, const void* k1,
                                const void* f1, const void* k2, const void* f2,
                                int shift_stride_h, int shift_stride_w, int n,
                                int h, int w, int c, int fill, int strict,
-                               int grayscale, int identity, void* stream) {
+                               int grayscale, const void* identity,
+                               int identity_stride, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (strict) {
     return launch<true>(x, scratch, out, taps, p, k1, f1, k2, f2, shift_stride_h,
                         shift_stride_w, n, h, w, c, fill, grayscale != 0,
-                        identity != 0, st);
+                        identity, identity_stride, st);
   }
   return launch<false>(x, scratch, out, taps, p, k1, f1, k2, f2, shift_stride_h,
                        shift_stride_w, n, h, w, c, fill, grayscale != 0,
-                       identity != 0, st);
+                       identity, identity_stride, st);
 }

@@ -43,9 +43,22 @@ SIGNATURES = {
     "luma_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                          _I, _I, _I, _I, _I, _P),
     # x, scratch, out, taps, p, k1, f1, k2, f2, stride_h, stride_w,
-    # n, h, w, c, fill, strict, grayscale, identity, stream
+    # n, h, w, c, fill, strict, grayscale, identity, identity_stride, stream
     "rgb_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                        _I, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+    # x, out, factors, n, h, w, c, stream
+    "shear_bicubic": (_P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+#: kernel launches, by kernel: each wrapper call that launches its CUDA
+#: kernel (or kernel pair) adds one. One dict for every wrapper module;
+#: ``megakernel.LAUNCHES`` is the same object. The luma kernel counts under
+#: "luma_blur_rotate_packed" when it runs many images a block, and the
+#: blur-rotate kernels under "*_traced" when their shifts are per image
+#: (the counterparts of the per-image-angle Pallas kernels).
+LAUNCHES = {
+    "luma_blur_rotate": 0, "luma_blur_rotate_packed": 0, "rgb_blur_rotate": 0,
+    "luma_blur_rotate_traced": 0, "rgb_blur_rotate_traced": 0, "shear_bicubic": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

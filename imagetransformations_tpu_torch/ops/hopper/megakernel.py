@@ -1,10 +1,12 @@
 """Fused blur -> 3-shear rotation (-> grayscale) on NHWC uint8 batches.
 
 PyTorch counterpart of ``imagetransformations_tpu/ops/pallas/megakernel.py``
-``fused_blur_rotate_image``. Two hand-written CUDA kernels carry it on the
-card (``csrc/luma_blur_rotate.cu``, ``csrc/rgb_blur_rotate.cu``); beside
-each wrapper sits its plain PyTorch version, which repeats the kernel's
-arithmetic op for op.
+``fused_blur_rotate_image`` (one angle for the batch) and
+``fused_blur_rotate_batched`` (one angle an image). Two hand-written CUDA
+kernels carry both on the card (``csrc/luma_blur_rotate.cu``,
+``csrc/rgb_blur_rotate.cu``), which take their shifts per image with a
+stride (0 for one angle); beside each wrapper sits its plain PyTorch
+version, which repeats the kernel's arithmetic op for op.
 
 A wrapper looks at the tensor it is given: on the CPU it runs the plain
 version, on a CUDA device it launches the kernel (or raises). It never
@@ -32,11 +34,10 @@ from imagetransformations_tpu_torch.ops.hopper import _lib
 from imagetransformations_tpu_torch.ops.hopper.shear import _paeth_params, _row_shifts
 from imagetransformations_tpu_torch.ops.stencil import cv2_gaussian_ksize, gaussian_taps
 
-#: kernel launches, by kernel: each wrapper call that launches its CUDA
-#: kernel pair (blur launch + shear launch) adds one. The luma kernel counts
-#: under "luma_blur_rotate_packed" when it runs the many-images-per-block
-#: geometry (the counterpart of _mega_gray1_packed_kernel).
-LAUNCHES = {"luma_blur_rotate": 0, "luma_blur_rotate_packed": 0, "rgb_blur_rotate": 0}
+#: kernel launches, by kernel (the package-wide counters of ``_lib``): each
+#: wrapper call that launches its kernel pair (blur launch + shear launch)
+#: adds one, under "*_traced" when the shifts are per image.
+LAUNCHES = _lib.LAUNCHES
 
 _LUMA_WEIGHTS = (19595, 38470, 7471)  # PIL L24 weights of R, G, B
 
@@ -64,6 +65,35 @@ def _params(h: int, w: int, radius: float, angle_deg: float, device: torch.devic
     )
     t, k1, f1, k2, f2 = (torch.from_numpy(v).to(device) for v in arrays)
     return t, (len(taps) - 1) // 2, k1, f1, k2, f2
+
+
+@functools.lru_cache(maxsize=8)
+def _flag(value: bool, device: torch.device) -> torch.Tensor:
+    """One i32 flag on ``device``: the batch-wide identity flag of the rgb
+    kernel (read with stride 0)."""
+    return torch.tensor([int(value)], dtype=torch.int32, device=device)
+
+
+def _traced_params(angles, n: int, h: int, w: int, max_angle_deg: float,
+                   device: torch.device):
+    """(k1 i32 [n, h], f1 f32 [n, h], k2 i32 [n, w], f2 f32 [n, w],
+    identity i32 [n]) for one angle an image, computed in f32 on ``device``
+    in the op order of the JAX package's traced kernels
+    (megakernel.py:1101-1116; not the host f64 of the static path):
+    clip to the budget, t = deg2rad(-angle), a = -tan(t/2), b = sin(t),
+    shifts a*ys and b*xs, k = floor, f = s - k. identity is 1 where t == 0."""
+    ang = torch.as_tensor(angles, dtype=torch.float32, device=device)
+    ang = torch.clamp(ang, -max_angle_deg, max_angle_deg)
+    t = torch.deg2rad(-ang).reshape(-1).expand(n)
+    a = -torch.tan(t / 2.0)
+    b = torch.sin(t)
+    ys = torch.arange(h, dtype=torch.float32, device=device) + 0.5 - h / 2.0
+    xs = torch.arange(w, dtype=torch.float32, device=device) + 0.5 - w / 2.0
+    sx = a[:, None] * ys[None, :]
+    sy = b[:, None] * xs[None, :]
+    k1, k2 = torch.floor(sx), torch.floor(sy)
+    return (k1.to(torch.int32), sx - k1, k2.to(torch.int32), sy - k2,
+            (t == 0.0).to(torch.int32))
 
 
 def _images_per_block(n: int, h: int) -> int:
@@ -161,19 +191,23 @@ def _l24(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill: int, strict: bool,
-                          grayscale: bool, identity: bool) -> torch.Tensor:
+                          grayscale: bool, identity) -> torch.Tensor:
     """Plain version of ``rgb_blur_rotate``: per-channel blur Y then X [rint
     if strict], three shears [trunc after each if strict] unless identity,
-    then PIL grayscale, or rint (identity) / trunc (rotation)."""
+    then PIL grayscale, or rint (identity) / trunc (rotation).
+
+    ``identity`` is one bool for the batch or an i32 flag an image ([n]);
+    the shears run on every image and the flagged ones take their
+    unsheared values, as the kernel skips their shears."""
     v = x.permute(0, 3, 1, 2).to(torch.float32)  # [n, c, h, w]
     v = _blur_along(_blur_along(v, taps, p, 2), taps, p, 3)
     if strict:
         v = torch.round(v)
-    if not identity:
-        v = _shears(v, k1, f1, k2, f2, float(fill), strict)
+    ident = (torch.as_tensor(identity, device=v.device) != 0).reshape(-1, 1, 1, 1)
+    v = torch.where(ident, v, _shears(v, k1, f1, k2, f2, float(fill), strict))
     if grayscale:
         return _replicate3(_l24(v[:, 0], v[:, 1], v[:, 2]))
-    q = to_uint8_rint(v) if identity else to_uint8_trunc(v)
+    q = torch.where(ident, to_uint8_rint(v), to_uint8_trunc(v))
     return q.permute(0, 2, 3, 1).contiguous()
 
 
@@ -226,13 +260,17 @@ def luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _lib.check(name, err)
-    LAUNCHES["luma_blur_rotate_packed" if images_per_block > 1 else name] += 1
+    if sh:
+        LAUNCHES["luma_blur_rotate_traced"] += 1
+    else:
+        LAUNCHES["luma_blur_rotate_packed" if images_per_block > 1 else name] += 1
     return out
 
 
 def rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, strict: bool = False,
-                    grayscale: bool = False, identity: bool = False) -> torch.Tensor:
+                    grayscale: bool = False, identity=False) -> torch.Tensor:
     """Per-channel blur -> rotation (-> PIL grayscale): NHWC u8 -> NHWC u8.
+    ``identity``: one bool for the batch, or i32 flags [n] (1: angle 0).
 
     On CUDA: ``csrc/rgb_blur_rotate.cu``; on the CPU: the plain version."""
     if x.device.type == "cpu":
@@ -243,6 +281,14 @@ def rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, strict: bool = Fa
     if grayscale and c != 3:
         raise ValueError("grayscale needs 3 channels")
     sh, sw = _shift_strides(k1, k2, n)
+    if isinstance(identity, bool):
+        ident, ident_stride = _flag(identity, x.device), 0
+    else:
+        ident, ident_stride = identity, 1
+        if (ident.shape != (n,) or ident.dtype != torch.int32 or ident.device != x.device
+                or not ident.is_contiguous()):
+            raise ValueError("identity flags must be a contiguous i32 [n] tensor on the "
+                             "image's device")
     name = "rgb_blur_rotate"
     lib = _lib.load(name)
     with torch.cuda.device(x.device):
@@ -251,11 +297,11 @@ def rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, strict: bool = Fa
         err = lib.rgb_blur_rotate(
             x.data_ptr(), scratch.data_ptr(), out.data_ptr(), taps.data_ptr(), p,
             k1.data_ptr(), f1.data_ptr(), k2.data_ptr(), f2.data_ptr(), sh, sw,
-            n, h, w, c, int(fill), int(strict), int(grayscale), int(identity),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            n, h, w, c, int(fill), int(strict), int(grayscale), ident.data_ptr(),
+            ident_stride, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _lib.check(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES[name + "_traced" if sh else name] += 1
     return out
 
 
@@ -300,3 +346,58 @@ def fused_blur_rotate_image(
                                 images_per_block=_images_per_block(n, h))
     return rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, strict=not stream,
                            grayscale=grayscale_out, identity=angle_deg == 0.0)
+
+
+def fused_blur_rotate_batched(
+    img: torch.Tensor,
+    radius: float,
+    angles_deg,
+    fill: int = 0,
+    grayscale_out: bool = False,
+    stream: bool = False,
+    max_angle_deg: float = 22.5,
+) -> torch.Tensor:
+    """Fused blur -> 3-shear rotation (-> grayscale) with one angle an image.
+    NHWC uint8 -> NHWC uint8, on the tensor's device.
+
+    Semantics match ``fused_blur_rotate_image`` per image (``stream`` as
+    there), with the shifts computed in f32 on the device
+    (``_traced_params``): <= 1 LSB from the static path's host-f64 shifts.
+    ``angles_deg`` is a scalar or one angle an image. A max |angle| beyond
+    ``max_angle_deg`` raises ValueError (the JAX package's routing budget);
+    the angles are then clipped to it.
+    """
+    if not isinstance(img, torch.Tensor) or img.ndim != 4 or img.dtype != torch.uint8:
+        raise ValueError("expected an NHWC uint8 tensor")
+    n, h, w, c = img.shape
+    # the budget check reads host angles on the host: a device read would
+    # wait for every launch queued before it
+    if isinstance(angles_deg, torch.Tensor) and angles_deg.device.type != "cpu":
+        checked = ang = angles_deg.to(img.device, torch.float32)
+    else:
+        checked = torch.as_tensor(angles_deg, dtype=torch.float32)
+        ang = checked.to(img.device)
+    if ang.numel() not in (1, n):
+        raise ValueError(f"expected one angle or {n}, got {ang.numel()}")
+    amax = float(checked.abs().max())
+    if amax > float(max_angle_deg) + 1e-6:
+        raise ValueError(
+            f"fused_blur_rotate_batched: max |angle| {amax} exceeds the routing "
+            f"budget max_angle_deg={max_angle_deg}"
+        )
+    if grayscale_out and c != 3:
+        raise ValueError("grayscale_out needs 3 channels")
+    radius = float(radius)
+    taps, p = _params(h, w, radius, 0.0, img.device)[:2]
+    if radius > 0 and (h < p + 2 or w < p + 2):
+        raise NotImplementedError(
+            "images smaller than the blur window + 2 take the XLA blur in the "
+            "JAX package, not yet ported (ROADMAP A.6)"
+        )
+    k1, f1, k2, f2, ident = _traced_params(ang, n, h, w, float(max_angle_deg), img.device)
+    x = img.contiguous()
+    if stream and grayscale_out:
+        return luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill,
+                                images_per_block=_images_per_block(n, h))
+    return rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, strict=not stream,
+                           grayscale=grayscale_out, identity=ident)

@@ -1,0 +1,90 @@
+"""PIL AFFINE BICUBIC shear with one factor an image (PyTorch + CUDA).
+
+Counterpart of ``imagetransformations_tpu/ops/pallas/resample.py``
+``shear_bicubic_batched``: the reference's apply_shear (widened canvas,
+white fill, transformation.py:212-226) cropped back to the input width. On
+the card the hand-written kernel ``csrc/shear_bicubic.cu`` carries it;
+beside the wrapper sits its plain PyTorch version, which repeats the
+kernel's f32 arithmetic op for op. A CPU tensor runs the plain version, a
+CUDA tensor the kernel (or the call raises); nothing falls back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from imagetransformations_tpu_torch.ops.hopper import _lib
+
+
+def shear_bicubic_plain(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``shear_bicubic``: NHWC u8, f32 factors [n]."""
+    n, h, w, c = x.shape
+    s = factors.reshape(n, 1, 1)
+    m2 = -torch.where(s > 0, torch.ceil(s * float(h)), 0.0)
+    xo = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, w) + 0.5
+    yo = torch.arange(h, dtype=torch.float32, device=x.device).view(1, h, 1) + 0.5
+    xx = (xo + s * yo) + m2  # [n, h, w]
+    xin = xx - 0.5
+    fl = torch.floor(xin)
+    x0 = fl.to(torch.int64)
+    fx = (xin - fl)[..., None]
+    v = x.to(torch.float32)
+
+    def tap(j: int) -> torch.Tensor:
+        idx = (x0 + j).clamp(0, w - 1)[..., None].expand(n, h, w, c)
+        return torch.gather(v, 2, idx)
+
+    cm1, c0, c1, c2 = tap(-1), tap(0), tap(1), tap(2)
+    p2 = -cm1 + c1
+    p3 = ((2.0 * (cm1 - c0)) + c1) - c2
+    p4 = ((-cm1 + c0) - c1) + c2
+    out = c0 + fx * (p2 + fx * (p3 + fx * p4))
+    out = torch.where(out <= 0, 0.0, torch.where(out >= 255, 255.0, torch.trunc(out)))
+    valid = ((xx >= 0) & (xx < w))[..., None]
+    return torch.where(valid, out, 255.0).to(torch.uint8)
+
+
+def shear_bicubic(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    """NHWC u8 -> NHWC u8, one f32 shear factor an image.
+
+    On CUDA: ``csrc/shear_bicubic.cu``; on the CPU: the plain version."""
+    if x.device.type == "cpu":
+        return shear_bicubic_plain(x, factors)
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
+    if x.dtype != torch.uint8 or x.ndim != 4 or not x.is_contiguous():
+        raise ValueError("expected a contiguous NHWC uint8 tensor")
+    n, h, w, c = x.shape
+    if (factors.device != x.device or factors.dtype != torch.float32
+            or factors.shape != (n,) or not factors.is_contiguous()):
+        raise ValueError("factors must be a contiguous f32 [n] tensor on the image's device")
+    if h > 65535:
+        raise ValueError("shear_bicubic launches one block row per image row: h <= 65535")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    name = "shear_bicubic"
+    lib = _lib.load(name)
+    with torch.cuda.device(x.device):
+        err = lib.shear_bicubic(x.data_ptr(), out.data_ptr(), factors.data_ptr(), n, h, w, c,
+                                torch.cuda.current_stream(x.device).cuda_stream)
+    _lib.check(name, err)
+    _lib.LAUNCHES[name] += 1
+    return out
+
+
+def shear_bicubic_batched(img: torch.Tensor, factors, max_shear: float = 1.05) -> torch.Tensor:
+    """Reference apply_shear (PIL AFFINE BICUBIC on a widened canvas, white
+    fill) cropped back to the input width, with one factor an image in
+    [0, max_shear], on the tensor's device. Bit-exact against
+    ``apply_shear(...)[:, :, :w]``.
+
+    ``max_shear`` is the JAX signature's routing budget; the CUDA kernel
+    gathers its taps directly and needs none, so it only documents the
+    range the caller promises."""
+    if not isinstance(img, torch.Tensor) or img.ndim != 4 or img.dtype != torch.uint8:
+        raise ValueError("expected an NHWC uint8 tensor")
+    f = torch.as_tensor(factors, dtype=torch.float32, device=img.device).reshape(-1)
+    if f.numel() == 1:
+        f = f.expand(img.shape[0])
+    return shear_bicubic(img.contiguous(), f.contiguous())

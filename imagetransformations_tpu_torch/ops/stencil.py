@@ -1,12 +1,26 @@
-"""Host-side Gaussian constants (cv2.GaussianBlur semantics).
+"""Gaussian blur with cv2.GaussianBlur semantics (PyTorch).
 
-Computed in float64 on the host; the kernels and their plain versions cast
-the taps to float32 exactly where they multiply.
+Host-side constants (``cv2_gaussian_ksize``, ``gaussian_taps``) are computed
+in float64; the fused kernels and their plain versions cast the taps to
+float32 exactly where they multiply.
+
+``gaussian_blur`` (one radius) and ``apply_blur`` (one radius an image) are
+the counterparts of ``imagetransformations_tpu/ops/stencil.py``, which XLA
+compiles (no Pallas kernel): an H pass then a W pass over NHWC f32, taps
+summed left to right (t = 0..K-1), numpy "reflect" (cv2 reflect-101)
+borders, rint at the end. Per-image radii use taps computed in f32 on the
+device and zero-padded to ``MAX_BLUR_KSIZE``, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from imagetransformations_tpu_torch.core.image import as_batch, as_float, finalize, restore_layout
+
+#: max kernel size for the blur grid (radius <= 5 -> ksize <= 31).
+MAX_BLUR_KSIZE = 31
 
 
 def cv2_gaussian_ksize(radius: float) -> int:
@@ -24,3 +38,88 @@ def gaussian_taps(ksize: int, sigma: float) -> np.ndarray:
     x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
     w = np.exp(-(x * x) / (2.0 * sigma * sigma))
     return w / w.sum()
+
+
+def _reflect_indices(size: int, p: int, device: torch.device) -> torch.Tensor:
+    """Source index of each of the size + 2p positions of a numpy
+    ``mode="reflect"`` pad (edge not repeated; reflects again as often as
+    ``p`` needs)."""
+    i = torch.arange(-p, size + p, device=device)
+    if size == 1:
+        return torch.zeros_like(i)
+    period = 2 * (size - 1)
+    i = i.remainder(period)
+    return torch.where(i >= size, period - i, i)
+
+
+def _conv1d(x: torch.Tensor, taps: torch.Tensor, dim: int) -> torch.Tensor:
+    """Separable 1-D pass along H (dim 1) or W (dim 2) of NHWC f32, reflect
+    borders. ``taps`` is [K] (shared) or [N, K] (one row an image); the taps
+    are summed left to right as acc + x[t] * w[t]."""
+    k = taps.shape[-1]
+    p = k // 2
+    size = x.shape[dim]
+    xp = x.index_select(dim, _reflect_indices(size, p, x.device))
+    acc = None
+    for t in range(k):
+        w = taps[..., t]
+        if w.ndim == 1:  # one tap an image
+            w = w.reshape(-1, 1, 1, 1)
+        term = xp.narrow(dim, t, size) * w
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def gaussian_blur(img: torch.Tensor, radius: float) -> torch.Tensor:
+    """cv2.GaussianBlur semantics with one radius for the batch."""
+    if radius == 0:
+        return img
+    x, single = as_batch(img)
+    k = cv2_gaussian_ksize(float(radius))
+    taps = torch.from_numpy(gaussian_taps(k, float(radius)).astype(np.float32)).to(x.device)
+    out = _conv1d(_conv1d(as_float(x), taps, 1), taps, 2)
+    return restore_layout(finalize(out, img.dtype, "rint"), single)
+
+
+def blur_taps_batched(radii, max_ksize: int = MAX_BLUR_KSIZE) -> torch.Tensor:
+    """Per-image cv2 Gaussian taps in f32, zero-padded to a fixed width -> [N, K].
+
+    The ksize rule int(6r) -> odd -> min 3 in tensor arithmetic; radius 0
+    gives a delta row. Same f32 op order as the JAX package's, with two
+    choices of its own: the exponential is taken in f64 and rounded to f32
+    (the correctly rounded f32 value, the same on every device; XLA's and
+    PyTorch's f32 ``exp`` differ from it, and from each other, by an ulp on
+    a few arguments), and the row sum runs left to right, as XLA's CPU
+    reduction does for these rows."""
+    r = torch.as_tensor(radii, dtype=torch.float32).reshape(-1, 1)
+    k = torch.floor(r * 6.0)
+    k = torch.where(torch.remainder(k, 2.0) == 0.0, k + 1.0, k)
+    k = torch.clamp(k, min=3.0)
+    half = (k - 1.0) / 2.0
+    c = (max_ksize - 1) // 2
+    x = torch.arange(max_ksize, dtype=torch.float32, device=r.device)[None, :] - float(c)
+    sigma = torch.clamp(r, min=1e-6)
+    arg = -(x * x) / (2.0 * sigma * sigma)
+    w = torch.exp(arg.to(torch.float64)).to(torch.float32)
+    w = torch.where(torch.abs(x) <= half, w, 0.0)
+    total = w[:, :1]
+    for t in range(1, max_ksize):
+        total = total + w[:, t : t + 1]
+    w = w / total
+    delta = (x == 0.0).to(torch.float32)
+    return torch.where(r == 0.0, delta, w)
+
+
+def apply_blur(img: torch.Tensor, radius) -> torch.Tensor:
+    """Reference apply_blur (transformation.py:228-257), batched: ``radius``
+    is a python number (one radius) or one radius an image."""
+    if isinstance(radius, (int, float)):
+        return gaussian_blur(img, float(radius))
+    return _blur_batched(img, radius)
+
+
+def _blur_batched(img: torch.Tensor, radii) -> torch.Tensor:
+    x, single = as_batch(img)
+    taps = blur_taps_batched(torch.as_tensor(radii, dtype=torch.float32, device=x.device))
+    out = _conv1d(_conv1d(as_float(x), taps, 1), taps, 2)
+    return restore_layout(finalize(out, img.dtype, "rint"), single)

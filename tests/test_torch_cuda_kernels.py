@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
+The blur-rotate kernels with one angle for the batch and one an image, the
+BICUBIC shear, and the apply_all sweep on the card against its CPU route.
+
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one (the decision is made inside the fixture). The file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -13,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from imagetransformations_tpu_torch import OpSpec, build_chain_fn
+from imagetransformations_tpu_torch import OpSpec, apply_all_transformations, build_chain_fn
 from imagetransformations_tpu_torch.ops.hopper import megakernel as mk
+from imagetransformations_tpu_torch.ops.hopper import resample as rs
+from imagetransformations_tpu_torch.pipeline.batch import TYPES
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +77,88 @@ def test_default_chain_runs_on_the_card(rng, cuda):
     out = build_chain_fn(chain)(imgs)
     assert out.device.type == "cuda"
     assert torch.equal(out.cpu(), build_chain_fn(chain, device="cpu")(imgs))
+
+
+# ---------------------------------------------------------------- per-image angles
+
+
+@pytest.mark.parametrize(
+    "shape,radius,angles,gray,stream,kernel",
+    [
+        ((3, 64, 48), 1.5, [-15.0, 0.0, 22.4], True, True, "luma_blur_rotate_traced"),
+        ((64, 32, 32), 1.5, np.linspace(-22.5, 22.5, 64), True, True, "luma_blur_rotate_traced"),
+        ((4, 33, 65), 0.0, [-22.5, 0.0, 7.5, 22.5], False, False, "rgb_blur_rotate_traced"),
+        ((3, 64, 48), 1.5, [0.0, 12.0, -3.0], False, True, "rgb_blur_rotate_traced"),
+        ((2, 64, 48), 1.5, [5.0, -20.0], True, False, "rgb_blur_rotate_traced"),
+    ],
+)
+def test_traced_kernel_equals_plain(rng, cuda, shape, radius, angles, gray, stream, kernel):
+    """The shifts are computed once on the card and fed to the kernel and
+    to its plain version; the entry point routes to the kernel."""
+    x = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(cuda)
+    n, h, w = shape
+    angles = np.asarray(angles, np.float32)
+    taps, p = mk._params(h, w, radius, 0.0, x.device)[:2]
+    k1, f1, k2, f2, ident = mk._traced_params(angles, n, h, w, 22.5, x.device)
+    before = mk.LAUNCHES[kernel]
+    out = mk.fused_blur_rotate_batched(x, radius, angles, grayscale_out=gray, stream=stream)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES[kernel] == before + 1
+    if kernel.startswith("luma"):
+        plain = mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0)
+    else:
+        plain = mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0, not stream, gray, ident)
+    assert torch.equal(out, plain)
+
+
+def test_traced_packed_geometry_byte_equal_to_one_image_a_block(rng, cuda):
+    x = torch.from_numpy(rng.integers(0, 256, (64, 32, 32, 3), dtype=np.uint8)).to(cuda)
+    taps, p = mk._params(32, 32, 1.5, 0.0, x.device)[:2]
+    k1, f1, k2, f2, _ = mk._traced_params(np.linspace(-22.5, 22.5, 64), 64, 32, 32, 22.5,
+                                          x.device)
+    packed = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0,
+                                 images_per_block=mk._images_per_block(64, 32))
+    single = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, images_per_block=1)
+    assert torch.equal(packed, single)
+
+
+# ---------------------------------------------------------------- BICUBIC shear
+
+
+@pytest.mark.parametrize("shape", [(11, 48, 40, 3), (3, 40, 56, 1), (4, 17, 300, 3)])
+def test_shear_bicubic_equals_plain(rng, cuda, shape):
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    f = torch.from_numpy(np.resize(np.arange(11, dtype=np.float32) / 10, shape[0])).to(cuda)
+    before = mk.LAUNCHES["shear_bicubic"]
+    out = rs.shear_bicubic_batched(x, f)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["shear_bicubic"] == before + 1
+    assert torch.equal(out, rs.shear_bicubic_plain(x, f))
+
+
+# ---------------------------------------------------------------- the sweep
+
+
+def test_apply_all_on_the_card_binds_values_to_the_cpu_ops(rng, cuda):
+    """Every type but the noise (whose draw is the card's) equals the CPU
+    route applied with the values the card drew; the noise is
+    deterministic per seed."""
+    imgs = rng.integers(0, 256, (4, 40, 48, 3), dtype=np.uint8)
+    res = apply_all_transformations(imgs, 11)
+    again = apply_all_transformations(imgs, 11)
+    assert set(res) == set(TYPES)
+    for t, (values, out) in res.items():
+        assert out.device.type == "cuda" and out.shape == imgs.shape
+        assert torch.equal(out, again[t][1]), t
+        if t == "gaussian_noise":
+            continue
+        ref = _apply_type(t, torch.from_numpy(imgs), values.cpu())
+        assert torch.equal(out.cpu(), ref), t
+
+
+def _apply_type(t, x, values):
+    from imagetransformations_tpu_torch.pipeline import batch
+
+    if t in ("shear", "scale"):
+        return batch._apply_per_value(x, t, values)
+    return batch._BATCHED_OPS[t](x, values, None)

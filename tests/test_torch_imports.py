@@ -39,6 +39,8 @@ def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "imagetransformations_tpu_torch/ops/hopper/megakernel.py" in names
     assert "imagetransformations_tpu_torch/pipeline/chain.py" in names
+    assert "imagetransformations_tpu_torch/pipeline/batch.py" in names
+    assert "imagetransformations_tpu_torch/ops/hopper/resample.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -70,6 +72,10 @@ chain = [port.OpSpec("blur", {"radius": 1.5}), port.OpSpec("rotation", {"angle":
          port.OpSpec("grayscale")]
 out = port.build_chain_fn(chain, device="cpu")(x)
 assert tuple(out.shape) == x.shape
+angles = np.asarray([7.5], np.float32)
+out = port.fused_blur_rotate_batched(out, 0.0, angles, stream=False)
+res = port.apply_all_transformations(x, 0, device="cpu")
+assert sorted(res) == sorted(port.PARAM_GRIDS)
 print("ok")
 """
     env = dict(os.environ)
