@@ -7,10 +7,11 @@ Builds the hand-written CUDA kernels from ``imagetransformations_tpu_torch/
 csrc`` with nvcc, holds each against its plain PyTorch version on the card
 at full size (0 LSB), drives the main path (``build_chain_fn`` with static
 and per-image angles, ``fused_blur_rotate_image`` and the 8-type
-``apply_all_transformations`` sweep) at the benchmark shapes with the
-launch counters reset just before and read just after, times each sweep
-type, and times each kernel beside its bound. Prints one JSON line per
-phase; the last line is
+``apply_all_transformations`` sweep with its default flags and with the
+fast scale/shear and PIL rotation) at the benchmark shapes with the launch
+counters reset just before and read just after, times each sweep type, and
+times each kernel beside its bound and, where one exists, a PyTorch call
+that samples the same way. Prints one JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
 Imports nothing of JAX.
@@ -39,7 +40,14 @@ SHAPE_512, SHAPE_224, SHAPE_32 = (32, 512, 512), (128, 224, 224), (4096, 32, 32)
 # the reference's grids (core/grids.py): rotation -22.5:2.5:22.5, shear 0:0.1:1
 ROTATION_GRID = [-22.5 + 2.5 * i for i in range(19)]
 SHEAR_GRID = [round(0.1 * i, 1) for i in range(11)]
+SCALE_GRID = [0.9, 1.0, 1.1, 1.2, 1.3, 1.4]
+ZOOM_BOUNDS = [0.85, 1.45]  # the fast scale's budget: scale grid min/max -+ 0.05
 APPLY_ALL_BUDGET = 23.0  # max |grid angle| + 0.5, as pipeline/batch.py routes it
+# apply_all's flags by main-path run kind
+SWEEP_FLAGS = {
+    "apply_all": {},
+    "apply_all_fast": {"pil_parity_scale_shear": False, "pil_parity_rotation": True},
+}
 
 KERNELS = {
     "luma_blur_rotate": dict(
@@ -66,6 +74,19 @@ KERNELS = {
         source="imagetransformations_tpu_torch/csrc/shear_bicubic.cu",
         replaces="imagetransformations_tpu/ops/pallas/resample.py:185",
     ),
+    "shear_rows_logrouted": dict(
+        source="imagetransformations_tpu_torch/csrc/shear_rows.cu",
+        replaces="imagetransformations_tpu/ops/pallas/shear.py:446",
+    ),
+    "zoom_bilinear": dict(
+        source="imagetransformations_tpu_torch/csrc/zoom_bilinear.cu",
+        replaces="imagetransformations_tpu/ops/pallas/resample.py:86",
+        also_replaces="imagetransformations_tpu/ops/pallas/resample.py:96",
+    ),
+    "pil_rotate_nearest": dict(
+        source="imagetransformations_tpu_torch/csrc/rotate_nearest.cu",
+        replaces="imagetransformations_tpu/ops/pallas/rotate_gather.py:76",
+    ),
 }
 # why no single PyTorch call is timed beside a kernel (library_ms null)
 NO_LIBRARY = {
@@ -73,6 +94,10 @@ NO_LIBRARY = {
                      "PIL's cubic is A=-1 with white fill",
 }
 NO_LIBRARY_BLUR_ROTATE = "no single PyTorch call computes blur + 3-shear rotation"
+# the PyTorch call timed beside a gather kernel (library_ms)
+LIBRARY_NOTE = ("F.grid_sample(mode={mode}, padding_mode='zeros', align_corners=False) on the "
+                "f32 NCHW batch, grid precomputed outside the timed region: samples the same "
+                "points up to border and rounding rules, not bit-equal; f32 in and out")
 
 
 def emit(obj) -> None:
@@ -114,8 +139,13 @@ def bound(n, h, w, c_in, c_out, ops_per_px):
     byte written once over HBM bandwidth, against the operations (none
     fused) over the unfused issue rate."""
     px = n * h * w
-    t_bytes = px * (c_in + c_out) / HBM_BYTES_PER_S
-    t_ops = px * ops_per_px / UNFUSED_OPS_PER_S
+    return bound_of(px * (c_in + c_out), px * ops_per_px)
+
+
+def bound_of(nbytes, ops):
+    """(bound_ms, bound_by) of a call that must move ``nbytes`` and do
+    ``ops`` unfused operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / UNFUSED_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -136,6 +166,71 @@ def ops_shear_bicubic(c: int) -> int:
     # per pixel: xo, s*yo, two adds, -0.5, floor, sub (the source coordinate);
     # per value: 4 cvt, p2 (2), p3 (4), p4 (4), Horner (3 mul + 3 add), clip (3)
     return 7 + 23 * c
+
+
+# The gather kernels read only the source pixels their taps touch, which
+# depends on the parameters: each bound counts the source bytes this run's
+# parameters need (each read once), every output byte, and the parameters.
+
+
+def bound_shear_rows(torch, x, shifts, b_px):
+    """Row shift: per value two u8->f32 conversions, the lerp (3), trunc and
+    conversion (2); per pixel the window test (index add, 2 compares); per
+    row floor, sub, clamp (2) and conversion. Reads columns max(0, k) ..
+    min(w-1, w+k) of each row."""
+    n, h, w, c = x.shape
+    k = torch.clamp(torch.floor(shifts), -b_px, b_px)
+    cols = torch.clamp(torch.clamp(w + k, max=w - 1) - torch.clamp(k, min=0) + 1, min=0)
+    nbytes = int(cols.sum().item()) * c + n * h * w * c + shifts.numel() * 4
+    return bound_of(nbytes, n * h * w * (7 * c + 3) + n * h * 5)
+
+
+def bound_zoom(torch, x, factors):
+    """Bilinear zoom: per value four conversions, three lerps (9), trunc,
+    clip (2), conversion; per pixel the joint validity; per column and per
+    row of each image the axis terms (15); per image 1/f and m (5). Reads
+    the rows and columns its taps touch."""
+    from imagetransformations_tpu_torch.ops.hopper.resample import zoom_axis
+
+    n, h, w, c = x.shape
+    inv = 1.0 / factors.reshape(n, 1)
+
+    def touched(dim):
+        i0, i1, _, valid = zoom_axis(inv, dim)
+        hits = torch.zeros((n, dim), dtype=torch.int32, device=x.device)
+        hits.scatter_add_(1, i0, valid.to(torch.int32))
+        hits.scatter_add_(1, i1, valid.to(torch.int32))
+        return (hits > 0).sum(1)
+
+    nbytes = int((touched(w) * touched(h)).sum().item()) * c + n * h * w * c + n * 4
+    return bound_of(nbytes, n * h * w * (17 * c + 1) + n * (h + w) * 15 + n * 5)
+
+
+def bound_rotate(torch, x, mats):
+    """NEAREST rotation: per pixel two adds and a floor a coordinate (6),
+    the window test (4 compares, 3 ands), two conversions, and a select a
+    value; the m*xc and m*yc products once a column and once a row. Reads
+    the source pixels that land inside the output."""
+    from imagetransformations_tpu_torch.ops.hopper.rotate_gather import rotate_source
+
+    n, h, w, c = x.shape
+    xx, yy, valid = rotate_source(mats, h, w)
+    idx = torch.where(valid, yy * w + xx, 0).to(torch.int64).reshape(n, -1)
+    hits = torch.zeros((n, h * w), dtype=torch.int32, device=x.device)
+    hits.scatter_add_(1, idx, valid.reshape(n, -1).to(torch.int32))
+    nbytes = int((hits > 0).sum().item()) * c + n * h * w * c + mats.numel() * 4
+    return bound_of(nbytes, n * h * w * (15 + c) + n * 2 * (h + w))
+
+
+def grid_sample_call(torch, x, src_x, src_y, mode):
+    """A call of F.grid_sample that samples x (NHWC u8) at continuous
+    source coordinates (pixel-centre units, [n, h, w] each) with ``mode``;
+    the f32 NCHW input and the grid are made here, outside the call."""
+    n, h, w, _ = x.shape
+    xf = x.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+    grid = torch.stack([2.0 * src_x / w - 1.0, 2.0 * src_y / h - 1.0], dim=-1).contiguous()
+    return lambda: torch.nn.functional.grid_sample(xf, grid, mode=mode, padding_mode="zeros",
+                                                   align_corners=False)
 
 
 def traced_angles(n: int, zero_at=None):
@@ -167,7 +262,7 @@ def main_path_runs():
     """The main path as a user calls it, one entry per run:
     (label, fn, shape, seed, ref, reps). ``ref`` names the parity case whose
     plain output the run's output must equal (same seed, same inputs), or is
-    "apply_all" for the sweeps, whose rotation and shear outputs are held
+    a key of SWEEP_FLAGS for the sweeps, whose kernel-carried types are held
     against the plain versions on the values the sweep drew.
     tools/profile_torch_port.py profiles the same runs."""
     from imagetransformations_tpu_torch import (
@@ -190,6 +285,9 @@ def main_path_runs():
     def sweep(x):
         return apply_all_transformations(x, SEED)
 
+    def sweep_fast(x):
+        return apply_all_transformations(x, SEED, **SWEEP_FLAGS["apply_all_fast"])
+
     return [
         ("chain blur>rotate>gray 512", fn_gray, SHAPE_512, SEED + 0, (SHAPE_512, True, True), 20),
         ("chain blur>rotate>gray 224", fn_gray, SHAPE_224, SEED + 1, (SHAPE_224, True, True), 20),
@@ -202,15 +300,24 @@ def main_path_runs():
          "traced gray 512", 20),
         ("apply_all_transformations 512", sweep, SHAPE_512, SEED + 30, "apply_all", 5),
         ("apply_all_transformations 32 (cifar)", sweep, SHAPE_32, SEED + 31, "apply_all", 5),
+        ("apply_all_transformations fast+pil-rotation 512", sweep_fast, SHAPE_512, SEED + 32,
+         "apply_all_fast", 5),
+        ("apply_all_transformations fast+pil-rotation 32 (cifar)", sweep_fast, SHAPE_32,
+         SEED + 33, "apply_all_fast", 5),
     ]
 
 
-def check_sweep(torch, x, res) -> dict:
-    """The 8 types, their shapes and types; rotation and shear at 0 LSB
-    against the plain versions on the values the sweep drew; the noise
-    changes the image. Returns the LSB of each checked type."""
+def check_sweep(torch, x, res, kind: str) -> dict:
+    """The 8 types, their shapes and types; the types that kernels carry
+    (rotation and shear; with the fast flags also scale) at 0 LSB against
+    the plain versions on the values the sweep drew; the noise changes the
+    image. Returns the LSB of each checked type."""
+    from imagetransformations_tpu_torch.ops import warp as wp
     from imagetransformations_tpu_torch.ops.hopper import megakernel as mk
     from imagetransformations_tpu_torch.ops.hopper import resample as rs
+    from imagetransformations_tpu_torch.ops.hopper import rotate_gather as rg
+    from imagetransformations_tpu_torch.ops.hopper import shear as sh
+    from imagetransformations_tpu_torch.pipeline import batch
     from imagetransformations_tpu_torch.pipeline.batch import TYPES
 
     n, h, w, _ = x.shape
@@ -221,13 +328,23 @@ def check_sweep(torch, x, res) -> dict:
             fail(f"apply_all {t}: values {tuple(values.shape)}, out {tuple(out.shape)} {out.dtype}")
         if out.device != x.device:
             fail(f"apply_all {t}: output on {out.device}")
-    values, out = res["rotation"]
-    taps, p = mk._params(h, w, 0.0, 0.0, x.device)[:2]
-    k1, f1, k2, f2, ident = mk._traced_params(values, n, h, w, APPLY_ALL_BUDGET, x.device)
-    plain_rot = mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0, True, False, ident)
-    values, out_shear = res["shear"]
-    lsb = {"rotation": max_lsb(torch, out, plain_rot),
-           "shear": max_lsb(torch, out_shear, rs.shear_bicubic_plain(x, values))}
+    plain = {}
+    values = res["rotation"][0]
+    if kind == "apply_all_fast":
+        plain["rotation"] = rg.pil_rotate_nearest_plain(
+            x, wp.rotation_matrix(values, w, h, device=x.device), 0)
+        values = res["shear"][0]
+        bound_px = batch.fast_shear_budget(max(SHEAR_GRID), h)
+        plain["shear"] = sh.shear_rows_logrouted_plain(
+            x, batch.fast_shear_shifts(values, h, x.device), 255, min(bound_px + 1, w + 2))
+        plain["scale"] = rs.zoom_bilinear_plain(x, res["scale"][0])
+    else:
+        taps, p = mk._params(h, w, 0.0, 0.0, x.device)[:2]
+        k1, f1, k2, f2, ident = mk._traced_params(values, n, h, w, APPLY_ALL_BUDGET, x.device)
+        plain["rotation"] = mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0, True, False,
+                                                     ident)
+        plain["shear"] = rs.shear_bicubic_plain(x, res["shear"][0])
+    lsb = {t: max_lsb(torch, res[t][1], ref) for t, ref in plain.items()}
     for t, v in lsb.items():
         if v != 0:
             fail(f"apply_all {t} differs from its plain version by {v} LSB")
@@ -246,7 +363,11 @@ def main() -> int:
     from imagetransformations_tpu_torch import apply_all_transformations, fused_blur_rotate_image
     from imagetransformations_tpu_torch.ops.hopper import _lib
     from imagetransformations_tpu_torch.ops.hopper import megakernel as mk
+    from imagetransformations_tpu_torch.ops import warp as wp
     from imagetransformations_tpu_torch.ops.hopper import resample as rs
+    from imagetransformations_tpu_torch.ops.hopper import rotate_gather as rg
+    from imagetransformations_tpu_torch.ops.hopper import shear as sh
+    from imagetransformations_tpu_torch.pipeline import batch
     from imagetransformations_tpu_torch.pipeline.batch import TYPES
 
     # ---- device -------------------------------------------------------------
@@ -381,6 +502,71 @@ def main() -> int:
         errs["shear_bicubic"] = max(errs["shear_bicubic"], err)
         del x, out
 
+    # row shift, zoom and NEAREST rotation: the parameters are computed once
+    # on the card and fed to the kernel and to its plain version; each entry
+    # point's output (routing checked by its counter) must equal the kernel's.
+    def routed(kernel, entry):
+        before = mk.LAUNCHES[kernel]
+        out = entry()
+        if mk.LAUNCHES[kernel] != before + 1:
+            fail(f"{kernel}: the entry point did not route to it: {mk.LAUNCHES}")
+        return out
+
+    for shape, seed in ((SHAPE_512, SEED + 26), (SHAPE_32, SEED + 27)):
+        x = images(torch, shape, seed)
+        n, h, w = shape
+        dev = x.device
+        # the fast shear over the grid, and one row beyond the budget
+        v = torch.from_numpy(cycled(SHEAR_GRID, n)).to(dev)
+        out = routed("shear_rows_logrouted", lambda: batch._shear_fast(x, v, None))
+        bound_px = batch.fast_shear_budget(max(SHEAR_GRID), h)
+        b_px = min(bound_px + 1, w + 2)
+        shifts = batch.fast_shear_shifts(v, h, dev)
+        over = shifts.clone()
+        over[0, h // 2] = -(bound_px + 20.5)
+        row = {"phase": "parity", "kernel": "shear_rows_logrouted", "shape": [*shape, 3],
+               "factors": SHEAR_GRID, "b_px": b_px, "beyond_budget_row": float(over[0, h // 2])}
+        kern = sh.shear_rows_logrouted(x, shifts, fill=255, max_shift_px=bound_px)
+        row["max_lsb"] = max_lsb(torch, kern, sh.shear_rows_logrouted_plain(x, shifts, 255, b_px))
+        row["max_lsb_entry_vs_kernel"] = max_lsb(torch, out, kern)
+        kern = sh.shear_rows_logrouted(x, over, fill=255, max_shift_px=bound_px)
+        row["max_lsb_beyond_budget"] = max_lsb(
+            torch, kern, sh.shear_rows_logrouted_plain(x, over, 255, b_px))
+        # the zoom over the scale grid and both budget bounds; random_zoom
+        f = torch.from_numpy(cycled(SCALE_GRID + ZOOM_BOUNDS, n)).to(dev)
+        zoom_rows = {"phase": "parity", "kernel": "zoom_bilinear", "shape": [*shape, 3],
+                     "factors": SCALE_GRID + ZOOM_BOUNDS}
+        out = routed("zoom_bilinear", lambda: batch._zoom_fast(x, f))
+        kern = rs.zoom_bilinear(x, f)
+        zoom_rows["max_lsb"] = max_lsb(torch, kern, rs.zoom_bilinear_plain(x, f))
+        zoom_rows["max_lsb_entry_vs_kernel"] = max_lsb(torch, out, kern)
+        out = routed("zoom_bilinear", lambda: wp.random_zoom(x, 1.2))
+        f12 = torch.full((n,), 1.2, dtype=torch.float32, device=dev)
+        zoom_rows["max_lsb_random_zoom_vs_kernel"] = max_lsb(torch, out, rs.zoom_bilinear(x, f12))
+        # the rotation over the grid angles and +-45; apply_rotation at 45
+        angles = cycled(ROTATION_GRID + [45.0, -45.0], n)
+        rot_rows = {"phase": "parity", "kernel": "pil_rotate_nearest", "shape": [*shape, 3],
+                    "angles": ROTATION_GRID + [45.0, -45.0]}
+        out = routed("pil_rotate_nearest",
+                     lambda: rg.pil_rotate_nearest_batched(x, angles, max_angle_deg=45.0))
+        m = wp.rotation_matrix(angles, w, h, device=dev)
+        kern = rg.pil_rotate_nearest(x, m, 0)
+        rot_rows["max_lsb"] = max_lsb(torch, kern, rg.pil_rotate_nearest_plain(x, m, 0))
+        rot_rows["max_lsb_entry_vs_kernel"] = max_lsb(torch, out, kern)
+        out = routed("pil_rotate_nearest", lambda: wp.apply_rotation(x, 45.0))
+        m45 = wp.rotation_matrix(45.0, w, h, device=dev).expand(n, 6).contiguous()
+        rot_rows["max_lsb_apply_rotation_vs_kernel"] = max_lsb(torch, out,
+                                                               rg.pil_rotate_nearest(x, m45, 0))
+        torch.cuda.synchronize()
+        for kernel, r in (("shear_rows_logrouted", row), ("zoom_bilinear", zoom_rows),
+                          ("pil_rotate_nearest", rot_rows)):
+            emit(r)
+            err = max(v for k, v in r.items() if k.startswith("max_lsb"))
+            if err != 0:
+                fail(f"parity {kernel} {shape} differs by {err} LSB")
+            errs[kernel] = max(errs[kernel], err)
+        del x, out, kern
+
     # ---- main path: the user-facing entry points, counters reset ----------
     runs = main_path_runs()
     inputs = {label: images(torch, shape, seed) for label, _, shape, seed, *_ in runs}
@@ -395,8 +581,8 @@ def main() -> int:
         n, h, w = shape
         row = {"run": label, "shape": [*shape, 3], "ms": ms,
                "gpix_per_s": n * h * w / (ms * 1e-3) / 1e9}
-        if ref == "apply_all":
-            row["max_lsb_vs_plain"] = check_sweep(torch, x, out)
+        if ref in SWEEP_FLAGS:
+            row["max_lsb_vs_plain"] = check_sweep(torch, x, out, ref)
         else:
             if out.shape != x.shape or out.dtype != torch.uint8 or out.device != x.device:
                 fail(f"{label}: bad output {tuple(out.shape)} {out.dtype} {out.device}")
@@ -420,10 +606,11 @@ def main() -> int:
 
     # ---- apply_all by type: the sweep with one type at a time --------------
     for label, _, shape, _, ref, _ in runs:
-        if ref != "apply_all":
+        if ref not in SWEEP_FLAGS:
             continue
         x = inputs[label]
-        ms = {t: time_ms(torch, lambda: apply_all_transformations(x, SEED, types=(t,)), 5)
+        ms = {t: time_ms(torch, lambda: apply_all_transformations(x, SEED, types=(t,),
+                                                                  **SWEEP_FLAGS[ref]), 5)
               for t in TYPES}
         emit({"phase": "apply_all_types", "run": label, "shape": [*shape, 3],
               "ms_by_type": ms, "ms_sum": sum(ms.values())})
@@ -432,7 +619,49 @@ def main() -> int:
     # ---- kernels: each wrapper and its plain version at main-path shapes ---
     entries = []
     for kernel in KERNELS:
-        if kernel == "shear_bicubic":
+        library_ms, library_note = None, NO_LIBRARY.get(kernel, NO_LIBRARY_BLUR_ROTATE)
+        if kernel in ("shear_rows_logrouted", "zoom_bilinear", "pil_rotate_nearest"):
+            # the fast sweep's use of each at 32x512x512: grid parameters
+            # cycled over the batch, computed once on the card
+            shape = SHAPE_512
+            n, h, w = shape
+            x = images(torch, shape, SEED + 100)
+            xo = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, w) + 0.5
+            yo = torch.arange(h, dtype=torch.float32, device=x.device).view(1, h, 1) + 0.5
+            if kernel == "shear_rows_logrouted":
+                v = torch.from_numpy(cycled(SHEAR_GRID, n)).to(x.device)
+                shifts = batch.fast_shear_shifts(v, h, x.device)
+                bound_px = batch.fast_shear_budget(max(SHEAR_GRID), h)
+                b_px = min(bound_px + 1, w + 2)
+                run = lambda: sh.shear_rows_logrouted(x, shifts, 255, bound_px)
+                plain = lambda: sh.shear_rows_logrouted_plain(x, shifts, 255, b_px)
+                b_ms, b_by = bound_shear_rows(torch, x, shifts, b_px)
+                lib = grid_sample_call(torch, x, (xo + shifts[:, :, None]).expand(n, h, w),
+                                       yo.expand(n, h, w), "bilinear")
+                mode, lib_mode = "fast shear, grid factors 0..1, fill 255", "'bilinear'"
+            elif kernel == "zoom_bilinear":
+                f = torch.from_numpy(cycled(SCALE_GRID, n)).to(x.device)
+                run = lambda: rs.zoom_bilinear(x, f)
+                plain = lambda: rs.zoom_bilinear_plain(x, f)
+                b_ms, b_by = bound_zoom(torch, x, f)
+                inv = (1.0 / f).view(n, 1, 1)
+                src_x = inv * xo + (w / 2.0 - inv * (w / 2.0))  # centre zoom, as zoom_matrix
+                src_y = inv * yo + (h / 2.0 - inv * (h / 2.0))
+                lib = grid_sample_call(torch, x, src_x.expand(n, h, w), src_y.expand(n, h, w),
+                                       "bilinear")
+                mode, lib_mode = "scale grid factors 0.9..1.4", "'bilinear'"
+            else:
+                m = wp.rotation_matrix(cycled(ROTATION_GRID, n), w, h, device=x.device)
+                run = lambda: rg.pil_rotate_nearest(x, m, 0)
+                plain = lambda: rg.pil_rotate_nearest_plain(x, m, 0)
+                b_ms, b_by = bound_rotate(torch, x, m)
+                mm = m.view(n, 6, 1, 1)
+                lib = grid_sample_call(torch, x, (mm[:, 0] * xo + mm[:, 1] * yo) + mm[:, 2],
+                                       (mm[:, 3] * xo + mm[:, 4] * yo) + mm[:, 5], "nearest")
+                mode, lib_mode = "rotation grid angles -22.5..22.5, fill 0", "'nearest'"
+            library_ms = time_ms(torch, lib, 20)
+            library_note = LIBRARY_NOTE.format(mode=lib_mode)
+        elif kernel == "shear_bicubic":
             shape = SHAPE_512
             x = images(torch, shape, SEED + 100)
             f = torch.from_numpy(cycled(SHEAR_GRID, shape[0])).to(x.device)
@@ -478,11 +707,10 @@ def main() -> int:
             "launches": launches[kernel], "max_abs_err": errs[kernel],
             "ms": time_ms(torch, run, 20), "plain_ms": time_ms(torch, plain, 5),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
-            "library_note": NO_LIBRARY.get(kernel, NO_LIBRARY_BLUR_ROTATE),
+            "library_ms": library_ms, "library_note": library_note,
             "shape": [*shape, 3], "mode": mode,
         })
-        del x
+        del x, run, plain
 
     # ---- geometry: the luma kernel at 4096x32x32, by images a block ---------
     # Two rounds, the second in reverse order, so warm-up favours neither end.

@@ -48,6 +48,12 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _P, _I, _P),
     # x, out, factors, n, h, w, c, stream
     "shear_bicubic": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, shifts, n, h, w, c, fill, b_px, stream
+    "shear_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, factors, n, h, w, c, stream
+    "zoom_bilinear": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, out, mats, n, h, w, c, fill, stream
+    "rotate_nearest": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 #: kernel launches, by kernel: each wrapper call that launches its CUDA
@@ -55,10 +61,13 @@ SIGNATURES = {
 #: ``megakernel.LAUNCHES`` is the same object. The luma kernel counts under
 #: "luma_blur_rotate_packed" when it runs many images a block, and the
 #: blur-rotate kernels under "*_traced" when their shifts are per image
-#: (the counterparts of the per-image-angle Pallas kernels).
+#: (the counterparts of the per-image-angle Pallas kernels). The libraries
+#: shear_rows and rotate_nearest count under the names of the Pallas entry
+#: points they port, "shear_rows_logrouted" and "pil_rotate_nearest".
 LAUNCHES = {
     "luma_blur_rotate": 0, "luma_blur_rotate_packed": 0, "rgb_blur_rotate": 0,
     "luma_blur_rotate_traced": 0, "rgb_blur_rotate_traced": 0, "shear_bicubic": 0,
+    "shear_rows_logrouted": 0, "zoom_bilinear": 0, "pil_rotate_nearest": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

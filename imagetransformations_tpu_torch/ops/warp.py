@@ -1,32 +1,261 @@
-"""Exact PIL LANCZOS scale with one factor an image (PyTorch).
+"""Geometric warps (PyTorch): affine matrices, the inverse-map affine warp,
+the reference's rotation, shear and zoom ops, and the exact LANCZOS scale.
 
-Counterpart of ``imagetransformations_tpu/ops/warp.py``
-``apply_scale_batched`` (XLA einsums in the JAX package, no Pallas kernel):
-the reference's apply_scale (LANCZOS resize, then centre crop up or black
-pad down back to the canvas, transformation.py:173-196) as two fixed-point
-matrix products an image. PIL accumulates pixel * 22-bit coefficient with a
-pre-added half, shifts by 22, clips, and quantizes to u8 *between* the
-horizontal and vertical passes (Resample.c); an f32 path drifts by 2 LSB.
+Counterpart of ``imagetransformations_tpu/ops/warp.py``. ``affine_warp``
+is a plain PyTorch gather with PIL's sampling conventions (XLA code in the
+JAX package, no Pallas kernel); ``apply_rotation`` and ``random_zoom``
+route u8 batches in the kernels' range to the hand-written CUDA kernels
+(``pil_rotate_nearest_batched``, ``zoom_bilinear_batched``), as the JAX
+package routes them to its Pallas kernels. Every op runs on the image
+tensor's device.
 
-Every partial sum is an integer below 2^31 in magnitude, so a float64
-matrix product holds each one exactly (53-bit mantissa); the result is
-converted to int64 and shifted. f32 (and TF32 above all) is not exact, and
-CUDA has no int64 matrix product.
+The LANCZOS scale (``apply_scale_batched``, XLA einsums in the JAX
+package) is the reference's apply_scale (LANCZOS resize, then centre crop
+up or black pad down back to the canvas, transformation.py:173-196) as two
+fixed-point matrix products an image. PIL accumulates pixel * 22-bit
+coefficient with a pre-added half, shifts by 22, clips, and quantizes to u8
+*between* the horizontal and vertical passes (Resample.c); an f32 path
+drifts by 2 LSB. Every partial sum is an integer below 2^31 in magnitude,
+so a float64 matrix product holds each one exactly (53-bit mantissa); the
+result is converted to int64 and shifted. f32 (and TF32 above all) is not
+exact, and CUDA has no int64 matrix product.
 
-``resize_coeffs`` and its filters are this package's copy of the JAX
+``pil_rotate_matrix``, ``shear_matrix``, ``shear_out_width``,
+``resize_coeffs`` and its filters are this package's copies of the JAX
 package's numpy oracle (``oracle/warp.py``).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
-from imagetransformations_tpu_torch.core.image import as_batch, restore_layout
+from imagetransformations_tpu_torch.core.image import as_batch, as_float, restore_layout
+from imagetransformations_tpu_torch.ops.hopper.resample import zoom_bilinear_batched
+from imagetransformations_tpu_torch.ops.hopper.rotate_gather import pil_rotate_nearest_batched
 
 PRECISION_BITS = 22  # PIL: 32 - 8 - 2
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------- affine matrices
+
+
+def _f32_vector(v, device) -> torch.Tensor:
+    """A scalar or array as a 1-D f32 tensor (``atleast_1d``)."""
+    return torch.as_tensor(v, dtype=F32, device=device).reshape(-1)
+
+
+def rotation_matrix(angle_deg, w: int, h: int, device=None) -> torch.Tensor:
+    """Inverse-map matrix [N, 6] f32 of the reference's apply_rotation(img,
+    angle) for a scalar or [N] angles in degrees (PIL rotate(-angle): the
+    two negations cancel into PIL's matrix convention). f32 throughout, in
+    the JAX package's op order, every op rounded on its own:
+    ``m2 = (m0*(-cx) + m1*(-cy)) + cx``. ``device``: where to compute it
+    (cos and sin differ by an ulp between devices), by default the angles'."""
+    a = torch.deg2rad(_f32_vector(angle_deg, device))
+    cos, sin = torch.cos(a), torch.sin(a)
+    cx, cy = w / 2.0, h / 2.0
+    m0, m1, m3, m4 = cos, sin, -sin, cos
+    m2 = (m0 * (-cx) + m1 * (-cy)) + cx
+    m5 = (m3 * (-cx) + m4 * (-cy)) + cy
+    return torch.stack([m0, m1, m2, m3, m4, m5], dim=-1)
+
+
+def translation_matrix(tx, ty, device=None) -> torch.Tensor:
+    """Integer-pixel shift [N, 6]: out(x, y) <- src(x - tx, y - ty), zero
+    fill. Fractional shifts truncate toward zero (the reference's
+    ``int(tx)``, transformation.py:288-289)."""
+    tx, ty = torch.broadcast_tensors(_f32_vector(tx, device), _f32_vector(ty, device))
+    one, zero = torch.ones_like(tx), torch.zeros_like(tx)
+    return torch.stack([one, zero, -torch.trunc(tx), zero, one, -torch.trunc(ty)], dim=-1)
+
+
+def zoom_matrix(factor, w: int, h: int, device=None) -> torch.Tensor:
+    """Zoom about the image centre [N, 6] (keeps the canvas; factor > 1
+    magnifies): ``inv = 1/f`` and ``c - inv*c`` in f32."""
+    f = _f32_vector(factor, device)
+    inv = 1.0 / f
+    cx, cy = w / 2.0, h / 2.0
+    zero = torch.zeros_like(f)
+    return torch.stack([inv, zero, cx - inv * cx, zero, inv, cy - inv * cy], dim=-1)
+
+
+def compose_matrices(m_outer: torch.Tensor, m_inner: torch.Tensor) -> torch.Tensor:
+    """Compose two inverse-map [N, 6] affines: warping with ``m_outer`` and
+    then with ``m_inner`` equals one warp with
+    ``compose_matrices(m_inner, m_outer)``."""
+    a, b = torch.atleast_2d(m_outer), torch.atleast_2d(m_inner)
+    r0 = b[:, 0] * a[:, 0] + b[:, 1] * a[:, 3]
+    r1 = b[:, 0] * a[:, 1] + b[:, 1] * a[:, 4]
+    r2 = b[:, 0] * a[:, 2] + b[:, 1] * a[:, 5] + b[:, 2]
+    r3 = b[:, 3] * a[:, 0] + b[:, 4] * a[:, 3]
+    r4 = b[:, 3] * a[:, 1] + b[:, 4] * a[:, 4]
+    r5 = b[:, 3] * a[:, 2] + b[:, 4] * a[:, 5] + b[:, 5]
+    return torch.stack([r0, r1, r2, r3, r4, r5], dim=-1)
+
+
+def pil_rotate_matrix(angle_deg: float, w: int, h: int) -> tuple:
+    """PIL Image.rotate(angle, expand=False) inverse-map matrix, float64 on
+    the host (PIL negates the angle; the reference's apply_rotation(img, a)
+    is ``pil_rotate_matrix(-a, ...)``)."""
+    angle = -math.radians(angle_deg % 360.0)
+    m = [
+        round(math.cos(angle), 15),
+        round(math.sin(angle), 15),
+        0.0,
+        round(-math.sin(angle), 15),
+        round(math.cos(angle), 15),
+        0.0,
+    ]
+    cx, cy = w / 2.0, h / 2.0
+    m[2] = m[0] * (-cx) + m[1] * (-cy) + cx
+    m[5] = m[3] * (-cx) + m[4] * (-cy) + cy
+    return tuple(m)
+
+
+def shear_matrix(shear_factor: float, h: int) -> tuple:
+    """transformation.py:212-226: (1, s, -ceil(s*h) if s > 0 else 0, 0, 1, 0)."""
+    shift = int(math.ceil(shear_factor * h))
+    return (1.0, shear_factor, float(-shift if shear_factor > 0 else 0), 0.0, 1.0, 0.0)
+
+
+def shear_out_width(shear_factor: float, w: int, h: int) -> int:
+    return w + int(math.ceil(shear_factor * h))
+
+
+# ---------------------------------------------------------------- core warp
+
+
+def _gather(x: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """Clamped gather x[n, yi[n, h, w], xi[n, h, w], :] -> [N, H', W', C]."""
+    n, h, w, _ = x.shape
+    bidx = torch.arange(n, device=x.device).view(n, 1, 1)
+    return x[bidx, yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+
+
+def _cubic(v1, v2, v3, v4, d):
+    """PIL's BICUBIC polynomial (A = -1), every op rounded on its own."""
+    p2 = -v1 + v3
+    p3 = ((2 * (v1 - v2)) + v3) - v4
+    p4 = ((-v1 + v2) - v3) + v4
+    return v2 + d * (p2 + d * (p3 + d * p4))
+
+
+def affine_warp(img: torch.Tensor, matrix, out_size: tuple[int, int] | None = None,
+                method: str = "bilinear", fill: float = 0.0) -> torch.Tensor:
+    """Inverse-mapping affine warp with PIL's sampling, on the image's device.
+
+    ``matrix``: [6] or [N, 6] = (a, b, c, d, e, f) with
+    ``src_x = (a*(x+.5) + b*(y+.5)) + c``, ``src_y = (d*(x+.5) + e*(y+.5)) + f``
+    in f32. ``method``: "nearest" (floor), "bilinear" (clamped 2x2 window,
+    trunc) or "bicubic" (PIL's A = -1 cubic, clamped 4x4 window, clip then
+    trunc). Outside the source canvas: ``fill``. u8 in, u8 out; float in,
+    f32 out unquantized. HWC or NHWC."""
+    x, single = as_batch(img)
+    n, h, w, _ = x.shape
+    out_h, out_w = out_size or (h, w)
+    m = torch.atleast_2d(torch.as_tensor(matrix, dtype=F32, device=x.device))
+    m = m.expand(n, 6).reshape(n, 6, 1, 1)
+    yo = torch.arange(out_h, dtype=F32, device=x.device).view(1, out_h, 1) + 0.5
+    xo = torch.arange(out_w, dtype=F32, device=x.device).view(1, 1, out_w) + 0.5
+    xx = m[:, 0] * xo + m[:, 1] * yo + m[:, 2]
+    yy = m[:, 3] * xo + m[:, 4] * yo + m[:, 5]
+    valid = ((xx >= 0) & (xx < w) & (yy >= 0) & (yy < h))[..., None]
+    xf = as_float(x)
+
+    if method == "nearest":
+        out = _gather(xf, torch.floor(yy).to(torch.int64), torch.floor(xx).to(torch.int64))
+        quant = None
+    elif method in ("bilinear", "bicubic"):
+        xin, yin = xx - 0.5, yy - 0.5
+        xfl, yfl = torch.floor(xin), torch.floor(yin)
+        x0, y0 = xfl.to(torch.int64), yfl.to(torch.int64)
+        fx, fy = (xin - xfl)[..., None], (yin - yfl)[..., None]
+        if method == "bilinear":
+            a, b = _gather(xf, y0, x0), _gather(xf, y0, x0 + 1)
+            c, d = _gather(xf, y0 + 1, x0), _gather(xf, y0 + 1, x0 + 1)
+            v1 = a + fx * (b - a)
+            v2 = c + fx * (d - c)
+            out = v1 + fy * (v2 - v1)
+            quant = "trunc"
+        else:
+            rows = []
+            for j in range(-1, 3):
+                cols = [_gather(xf, y0 + j, x0 + i) for i in range(-1, 3)]
+                rows.append(_cubic(*cols, fx))
+            out = _cubic(*rows, fy)
+            quant = "clip_trunc"
+    else:
+        raise ValueError(f"unknown warp method {method!r}")
+
+    if x.dtype == torch.uint8:
+        if quant == "trunc":
+            out = torch.clamp(torch.trunc(out), 0.0, 255.0)
+        elif quant == "clip_trunc":
+            out = torch.where(out <= 0, 0.0, torch.where(out >= 255, 255.0, torch.trunc(out)))
+        out = torch.where(valid, out, float(fill)).to(torch.uint8)
+    else:
+        out = torch.where(valid, out, float(fill))
+    return restore_layout(out, single)
+
+
+# ---------------------------------------------------------------- public ops
+
+
+def apply_rotation(img: torch.Tensor, angle, max_angle_deg: float | None = None) -> torch.Tensor:
+    """Reference apply_rotation: PIL rotate(-angle), NEAREST, black fill.
+
+    u8 images with every |angle| <= the budget (``max_angle_deg``, default
+    45, itself <= 45) run the NEAREST rotation kernel with that budget, as
+    the JAX package routes them. Anything else takes the exact warp: a
+    Python scalar with PIL's float64 matrix, an array with
+    ``rotation_matrix`` (f32, on the image's device)."""
+    x, single = as_batch(img)
+    h, w = x.shape[1], x.shape[2]
+    budget = 45.0 if max_angle_deg is None else float(max_angle_deg)
+    scalar = isinstance(angle, (int, float))
+    amax = abs(float(angle)) if scalar else float(torch.as_tensor(angle).abs().max())
+    if x.dtype == torch.uint8 and amax <= budget and budget <= 45.0:
+        out = pil_rotate_nearest_batched(x, angle, max_angle_deg=budget)
+        return restore_layout(out, single)
+    if scalar:
+        m = torch.tensor(pil_rotate_matrix(-float(angle), w, h), dtype=torch.float64).to(F32)
+    else:
+        m = rotation_matrix(angle, w, h, device=x.device)
+    return restore_layout(affine_warp(x, m, method="nearest", fill=0.0), single)
+
+
+def apply_shear(img: torch.Tensor, shear_factor: float) -> torch.Tensor:
+    """Reference apply_shear: widened canvas (w + ceil(s*h)), AFFINE
+    BICUBIC, white fill."""
+    x, single = as_batch(img)
+    h, w = x.shape[1], x.shape[2]
+    s = float(shear_factor)
+    m = torch.tensor(shear_matrix(s, h), dtype=torch.float64).to(F32)
+    out = affine_warp(x, m, out_size=(h, shear_out_width(s, w, h)), method="bicubic",
+                      fill=255.0)
+    return restore_layout(out, single)
+
+
+def random_zoom(img: torch.Tensor, factor) -> torch.Tensor:
+    """Centre zoom keeping the canvas (fall_2025/transformations_code:50).
+
+    A Python-number factor in [0.5, 4] on u8 images runs the bilinear zoom
+    kernel (budget factor -+ 0.01, as the JAX package calls it); anything
+    else takes the bilinear warp of ``zoom_matrix``. Both give the same
+    bits where both apply."""
+    x, single = as_batch(img)
+    h, w = x.shape[1], x.shape[2]
+    if isinstance(factor, (int, float)) and x.dtype == torch.uint8 and 0.5 <= factor <= 4.0:
+        f = float(factor)
+        out = zoom_bilinear_batched(x, f, min_factor=f - 0.01, max_factor=f + 0.01)
+        return restore_layout(out, single)
+    m = zoom_matrix(factor, w, h, device=x.device)
+    return restore_layout(affine_warp(x, m, method="bilinear", fill=0.0), single)
 
 
 # ---------------------------------------------------------------- PIL filters
@@ -85,7 +314,7 @@ def resize_coeffs(in_size: int, out_size: int, method: str = "lanczos"):
     return bounds, kk
 
 
-# ---------------------------------------------------------------- matrices
+# ---------------------------------------------------------------- LANCZOS matrices
 
 
 def _resize_matrix_fixed(in_size: int, out_size: int, method: str) -> np.ndarray:

@@ -5,15 +5,25 @@ loops images x 8 transform types in Python, drawing a grid value per
 (image, type) (transformation.py:92-170); here each type draws one ``[N]``
 value vector from its grid and runs over the whole batch at once.
 
-With the default flags two types run hand-written CUDA kernels on the
-card: rotation (``fused_blur_rotate_batched``, strict, radius 0: the rgb
-blur-rotate kernel with per-image shifts) and shear
-(``shear_bicubic_batched``). The other six are plain PyTorch, as they are
-XLA code in the JAX package.
+Three types run hand-written CUDA kernels on the card, by flag:
+
+- rotation: ``fused_blur_rotate_batched`` (strict, radius 0: the rgb
+  blur-rotate kernel with per-image shifts); with
+  ``pil_parity_rotation=True`` the PIL NEAREST rotation
+  (``pil_rotate_nearest_batched``).
+- shear: the PIL BICUBIC shear (``shear_bicubic_batched``); with
+  ``pil_parity_scale_shear=False`` the row-shift shear
+  (``shear_rows_logrouted``).
+- scale: with ``pil_parity_scale_shear=False`` the bilinear zoom
+  (``zoom_bilinear_batched``); by default the exact LANCZOS scale, f64
+  matrix products in plain PyTorch.
+
+The other five are plain PyTorch, as they are XLA code in the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -25,7 +35,12 @@ from imagetransformations_tpu_torch.ops import noise as nz
 from imagetransformations_tpu_torch.ops import stencil as st
 from imagetransformations_tpu_torch.ops import warp as wp
 from imagetransformations_tpu_torch.ops.hopper.megakernel import fused_blur_rotate_batched
-from imagetransformations_tpu_torch.ops.hopper.resample import shear_bicubic_batched
+from imagetransformations_tpu_torch.ops.hopper.resample import (
+    shear_bicubic_batched,
+    zoom_bilinear_batched,
+)
+from imagetransformations_tpu_torch.ops.hopper.rotate_gather import pil_rotate_nearest_batched
+from imagetransformations_tpu_torch.ops.hopper.shear import shear_rows_logrouted
 
 TYPES = ("scale", "rotation", "lighten_darken", "gaussian_noise", "translation", "contrast",
          "blur", "shear")
@@ -60,15 +75,40 @@ def _translation_fast(x, values, generator):
     return _translate_dynamic(x, values, int(max(abs(v) for v in _grid("translation"))))
 
 
-_FAST_SCALE_SHEAR = ("pil_parity_scale_shear=False runs the row-shift shear and the "
-                     "bilinear zoom kernels, not ported yet (ROADMAP B.9, B.10)")
-_PIL_ROTATION = ("pil_parity_rotation=True runs the PIL NEAREST rotation kernel, not "
-                 "ported yet (ROADMAP B.12)")
+def fast_shear_shifts(values, h: int, device: torch.device) -> torch.Tensor:
+    """Row shifts [n, h] f32 of the fast shear, on ``device``: row y of an
+    image with factor v moves by ``v*(y + 0.5) - ceil(v*h)`` (v > 0; 0
+    otherwise), the reference's widened-canvas crop (JAX pipeline/batch.py
+    ``_shear_fast_batched``)."""
+    v = torch.as_tensor(values, dtype=torch.float32, device=device).reshape(-1, 1)
+    y = (torch.arange(h, dtype=torch.float32, device=device) + 0.5).reshape(1, h)
+    return v * y - torch.where(v > 0, torch.ceil(v * float(h)), 0.0)
+
+
+def fast_shear_budget(max_shear: float, h: int) -> int:
+    """The row-shift kernel's ``max_shift_px`` for factors up to
+    ``max_shear``: ``ceil(max_shear*h) + 2``, in host float64."""
+    return int(math.ceil(max_shear * h)) + 2
+
+
+def _shear_fast_batched(x, values, max_shear: float):
+    """Fast shear: one row-shift kernel call (bilinear, white fill),
+    cropped to the input canvas."""
+    shifts = fast_shear_shifts(values, x.shape[1], x.device)
+    return shear_rows_logrouted(x, shifts, fill=255,
+                                max_shift_px=fast_shear_budget(max_shear, x.shape[1]))
 
 
 def _shear_fast(x, values, generator):
-    """The JAX package's non-parity shear (row-shift kernel #9): not ported yet."""
-    raise NotImplementedError(_FAST_SCALE_SHEAR)
+    return _shear_fast_batched(x, values, max(abs(v) for v in _grid("shear")))
+
+
+def _zoom_fast(x, values):
+    """random_zoom semantics through the bilinear zoom kernel, with the
+    scale grid's bounds -+ 0.05 as the budget."""
+    grid = _grid("scale")
+    return zoom_bilinear_batched(x, values, min_factor=min(grid) - 0.05,
+                                 max_factor=max(grid) + 0.05)
 
 
 #: transform type -> batched (images, values[N], generator) -> images
@@ -79,6 +119,8 @@ _BATCHED_OPS: dict[str, Callable] = {
     "gaussian_noise": lambda x, v, g: nz.apply_gaussian_noise(x, v, generator=g),
     "rotation": _rotation_by_unique_angle,
     "translation": _translation_fast,
+    # without PIL parity: the bilinear zoom and the row-shift shear kernels
+    "scale": lambda x, v, g: _zoom_fast(x, v),
     "shear": _shear_fast,
 }
 
@@ -86,23 +128,36 @@ _BATCHED_OPS: dict[str, Callable] = {
 def _apply_per_value(images: torch.Tensor, t: str, values: torch.Tensor) -> torch.Tensor:
     """Exact PIL semantics for the canvas-changing ops, one value an image:
     BICUBIC shear on the widened canvas cropped to w (kernel #11), LANCZOS
-    scale by fixed-point matrices."""
+    scale by fixed-point matrices, PIL NEAREST rotation (kernel #12, f32
+    coordinates: <= 0.5% boundary flips against PIL's f64)."""
     grid = _grid({"scale": "scale", "shear": "shear", "rotation_pil": "rotation"}[t])
     if t == "shear" and min(grid) >= 0.0:
         return shear_bicubic_batched(images, values, max_shear=max(grid) + 0.05)
     if t == "scale":
         return wp.apply_scale_batched(images, values, grid)
-    if t == "rotation_pil":
-        raise NotImplementedError(_PIL_ROTATION)
+    if t == "rotation_pil" and max(abs(v) for v in grid) <= 45.0:
+        return pil_rotate_nearest_batched(images, values,
+                                          max_angle_deg=max(abs(v) for v in grid) + 0.5)
     return _value_sweep_per_value(images, values, t, grid)
 
 
 def _value_sweep_per_value(images, values, t: str, grid: tuple):
-    """The JAX package's sweep over every grid value (for grids the batched
-    kernels do not take): not ported yet."""
-    raise NotImplementedError(
-        f"the per-grid-value sweep of {t!r} runs the affine warp, not ported yet (ROADMAP A.6)"
-    )
+    """Every grid value applied to the whole batch (``apply_shear`` cropped
+    to w, or ``apply_rotation``), each image taking its own value's row:
+    for grids the batched kernels do not take (a shear grid below 0, a
+    rotation grid beyond 45 degrees)."""
+    w = images.shape[2]
+    vd = torch.as_tensor(values, dtype=torch.float32, device=images.device).reshape(-1, 1, 1, 1)
+    out = torch.zeros_like(images)
+    for v in grid:
+        if t == "shear":
+            res = wp.apply_shear(images, v)[:, :, :w]
+        elif t == "rotation_pil":
+            res = wp.apply_rotation(images, v)
+        else:
+            raise ValueError(t)
+        out = torch.where(vd == v, res, out)
+    return out
 
 
 def apply_all_transformations(
@@ -124,15 +179,15 @@ def apply_all_transformations(
     ``torch.Generator`` on that device, or an int seed for one. The draws
     differ from the JAX package's for any seed.
 
-    ``fused`` is accepted for the JAX signature; both values run the same
-    code here (the JAX package requires the two to agree). The non-default
-    flags raise NotImplementedError naming the ROADMAP items that port them.
+    ``pil_parity_scale_shear``: True takes PIL's canvas semantics (LANCZOS
+    scale, BICUBIC shear on the widened canvas); False the bilinear zoom
+    and the row-shift shear. ``pil_parity_rotation``: True takes PIL
+    NEAREST rotation, False the 3-shear rotation with per-pass u8 trunc.
+    Every flag combination returns all 8 types. ``fused`` is accepted for
+    the JAX signature; both values run the same code here (the JAX package
+    requires the two to agree).
     """
     del fused  # one dispatch mode on the GPU: both values run this code
-    if not pil_parity_scale_shear:
-        raise NotImplementedError(_FAST_SCALE_SHEAR)
-    if pil_parity_rotation:
-        raise NotImplementedError(_PIL_ROTATION)
     dev = entry_device(device, "apply_all_transformations")
     x = to_device(images, dev)
     if x.ndim != 4 or x.dtype != torch.uint8:
@@ -145,7 +200,9 @@ def apply_all_transformations(
     out: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
     for t in types:
         values = sample_params(generator, t, n)
-        if t in ("shear", "scale"):
+        if t == "rotation" and pil_parity_rotation:
+            results = _apply_per_value(x, "rotation_pil", values)
+        elif t in ("shear", "scale") and pil_parity_scale_shear:
             results = _apply_per_value(x, t, values)
         elif t in _BATCHED_OPS:
             results = _BATCHED_OPS[t](x, values, generator)

@@ -252,18 +252,31 @@ def test_apply_all_fused_flag_and_types_subset(sweep):
     [({"pil_parity_scale_shear": False}, "B.9"), ({"pil_parity_rotation": True}, "B.12")],
 )
 def test_apply_all_unported_flags_raise(kwargs, item):
-    imgs = np.zeros((2, 32, 32, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match=item):
-        port.apply_all_transformations(imgs, 0, device="cpu", **kwargs)
+    """The non-default flags (kernels B.9 + B.10, B.12) run: all 8 types, in
+    shape, on the CPU; the types they change differ from the default
+    sweep's and the others do not (tests/test_torch_apply_all_fast.py holds
+    the values against the JAX package)."""
+    imgs = np.random.default_rng(5).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    res = port.apply_all_transformations(imgs, 0, device="cpu", **kwargs)
+    dflt = port.apply_all_transformations(imgs, 0, device="cpu")
+    changed = {"B.9": {"scale", "shear"}, "B.12": {"rotation"}}[item]
+    assert set(res) == set(tbatch.TYPES)
+    for t, (vals, out) in res.items():
+        assert out.shape == imgs.shape and out.dtype == torch.uint8
+        assert torch.equal(vals, dflt[t][0])
+        assert torch.equal(out, dflt[t][1]) == (t not in changed), t
 
 
 def test_apply_all_unported_branches_raise():
-    x = torch.zeros((2, 32, 32, 3), dtype=torch.uint8)
+    """The fast shear branch and the per-grid-value sweep run: the fast
+    shear of factor 0 is the identity (shift 0 in every row), and the
+    sweep over (0.0,) is apply_shear(0)[:, :, :w], also the identity."""
+    x = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 32, 32, 3),
+                                                            dtype=np.uint8))
     v = torch.zeros(2)
-    with pytest.raises(NotImplementedError, match="B.10"):
-        tbatch._BATCHED_OPS["shear"](x, v, None)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tbatch._value_sweep_per_value(x, v, "shear", (0.0,))
+    assert torch.equal(tbatch._BATCHED_OPS["shear"](x, v, None), x)
+    assert torch.equal(tbatch._value_sweep_per_value(x, v, "shear", (0.0,)), x)
+    assert torch.equal(tbatch._BATCHED_OPS["scale"](x, torch.ones(2), None), x)
 
 
 def test_apply_all_default_device_is_cuda(monkeypatch):

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 The blur-rotate kernels with one angle for the batch and one an image, the
-BICUBIC shear, and the apply_all sweep on the card against its CPU route.
+BICUBIC shear, the row-shift shear, the bilinear zoom, the PIL NEAREST
+rotation, and the apply_all sweep (every flag combination) on the card
+against its CPU route.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one (the decision is made inside the fixture). The file
@@ -19,6 +21,10 @@ import torch
 from imagetransformations_tpu_torch import OpSpec, apply_all_transformations, build_chain_fn
 from imagetransformations_tpu_torch.ops.hopper import megakernel as mk
 from imagetransformations_tpu_torch.ops.hopper import resample as rs
+from imagetransformations_tpu_torch.ops.hopper import rotate_gather as rg
+from imagetransformations_tpu_torch.ops.hopper import shear as sh
+from imagetransformations_tpu_torch.ops import warp as wp
+from imagetransformations_tpu_torch.pipeline import batch
 from imagetransformations_tpu_torch.pipeline.batch import TYPES
 
 pytestmark = pytest.mark.cuda
@@ -136,6 +142,74 @@ def test_shear_bicubic_equals_plain(rng, cuda, shape):
     assert torch.equal(out, rs.shear_bicubic_plain(x, f))
 
 
+# ---------------------------------------------------------------- row shift, zoom, rotation
+
+# shapes: w not a multiple of 32, a single image, one channel, a wide row
+NEW_KERNEL_SHAPES = [(3, 40, 45, 3), (1, 33, 70, 3), (5, 24, 20, 1), (2, 17, 300, 3)]
+
+
+@pytest.mark.parametrize("shape", NEW_KERNEL_SHAPES)
+def test_shear_rows_equals_plain(rng, cuda, shape):
+    """The fast shear's shifts over the shear grid, plus a beyond-budget
+    row (saturation) and a beyond-canvas row (all fill)."""
+    n, h, w, _ = shape
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    shifts = batch.fast_shear_shifts(np.resize(np.arange(11, dtype=np.float32) / 10, n), h, cuda)
+    bound = batch.fast_shear_budget(1.0, h)
+    shifts[0, 0], shifts[-1, -1] = -(bound + 7.5), 3.0 * w
+    before = mk.LAUNCHES["shear_rows_logrouted"]
+    out = sh.shear_rows_logrouted(x, shifts, fill=255, max_shift_px=bound)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["shear_rows_logrouted"] == before + 1
+    b_px = min(bound + 1, w + 2)
+    assert torch.equal(out, sh.shear_rows_logrouted_plain(x, shifts, 255, b_px))
+    assert torch.equal(out.cpu(), sh.shear_rows_logrouted(x.cpu(), shifts.cpu(), fill=255,
+                                                          max_shift_px=bound))
+
+
+@pytest.mark.parametrize("shape", NEW_KERNEL_SHAPES)
+def test_zoom_bilinear_equals_plain(rng, cuda, shape):
+    n = shape[0]
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    f = torch.from_numpy(np.resize(np.asarray([0.9, 1.0, 1.1, 1.2, 1.3, 1.4, 0.85, 1.45],
+                                              np.float32), n)).to(cuda)
+    before = mk.LAUNCHES["zoom_bilinear"]
+    out = rs.zoom_bilinear_batched(x, f)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["zoom_bilinear"] == before + 1
+    assert torch.equal(out, rs.zoom_bilinear_plain(x, f))
+    assert torch.equal(out.cpu(), rs.zoom_bilinear_plain(x.cpu(), f.cpu()))
+
+
+@pytest.mark.parametrize("shape", NEW_KERNEL_SHAPES)
+def test_pil_rotate_nearest_equals_plain(rng, cuda, shape):
+    """The matrices are computed once on the card and fed to the kernel
+    and to its plain version (the card's sin may differ by an ulp from the
+    CPU's)."""
+    n, h, w, _ = shape
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    angles = np.resize(np.asarray([-22.5 + 2.5 * i for i in range(19)] + [45.0, -45.0],
+                                  np.float32), n)
+    m = wp.rotation_matrix(angles, w, h, device=cuda)
+    before = mk.LAUNCHES["pil_rotate_nearest"]
+    out = rg.pil_rotate_nearest_batched(x, angles, fill=7)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["pil_rotate_nearest"] == before + 1
+    assert torch.equal(out, rg.pil_rotate_nearest_plain(x, m, 7))
+
+
+def test_warp_ops_route_to_the_kernels_on_the_card(rng, cuda):
+    x = torch.from_numpy(rng.integers(0, 256, (2, 40, 45, 3), dtype=np.uint8)).to(cuda)
+    before = dict(mk.LAUNCHES)
+    rot, zoom = wp.apply_rotation(x, 12.5), wp.random_zoom(x, 1.2)
+    assert mk.LAUNCHES["pil_rotate_nearest"] == before["pil_rotate_nearest"] + 1
+    assert mk.LAUNCHES["zoom_bilinear"] == before["zoom_bilinear"] + 1
+    assert rot.device.type == "cuda" and zoom.device.type == "cuda"
+    assert torch.equal(zoom, wp.affine_warp(x, wp.zoom_matrix(1.2, 45, 40), method="bilinear"))
+    m = wp.rotation_matrix(12.5, 45, 40, device=cuda)
+    assert torch.equal(rot, wp.affine_warp(x, m, method="nearest"))
+
+
 # ---------------------------------------------------------------- the sweep
 
 
@@ -156,9 +230,29 @@ def test_apply_all_on_the_card_binds_values_to_the_cpu_ops(rng, cuda):
         assert torch.equal(out.cpu(), ref), t
 
 
-def _apply_type(t, x, values):
-    from imagetransformations_tpu_torch.pipeline import batch
+@pytest.mark.parametrize("fast,rotation", [(True, False), (True, True), (False, True)])
+def test_apply_all_flags_on_the_card_bind_values_to_the_cpu_ops(rng, cuda, fast, rotation):
+    """The fast scale and shear bit-equal to the CPU route; the PIL
+    rotation equal to its plain version on the card (the card's rotation
+    matrices, see above)."""
+    imgs = rng.integers(0, 256, (4, 40, 48, 3), dtype=np.uint8)
+    flags = {"pil_parity_scale_shear": not fast, "pil_parity_rotation": rotation}
+    res = apply_all_transformations(imgs, 11, **flags)
+    assert set(res) == set(TYPES)
+    x = torch.from_numpy(imgs)
+    for t, (values, out) in res.items():
+        assert out.device.type == "cuda" and out.shape == imgs.shape
+        if t == "gaussian_noise":
+            continue
+        if t == "rotation" and rotation:
+            m = wp.rotation_matrix(values, 48, 40, device=cuda)
+            assert torch.equal(out, rg.pil_rotate_nearest_plain(x.to(cuda), m, 0))
+            continue
+        ref = _apply_type(t, x, values.cpu(), pil_parity=not fast)
+        assert torch.equal(out.cpu(), ref), t
 
-    if t in ("shear", "scale"):
+
+def _apply_type(t, x, values, pil_parity=True):
+    if t in ("shear", "scale") and pil_parity:
         return batch._apply_per_value(x, t, values)
     return batch._BATCHED_OPS[t](x, values, None)

@@ -41,6 +41,8 @@ def test_port_files_found():
     assert "imagetransformations_tpu_torch/pipeline/chain.py" in names
     assert "imagetransformations_tpu_torch/pipeline/batch.py" in names
     assert "imagetransformations_tpu_torch/ops/hopper/resample.py" in names
+    assert "imagetransformations_tpu_torch/ops/hopper/rotate_gather.py" in names
+    assert "imagetransformations_tpu_torch/ops/warp.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -76,6 +78,12 @@ angles = np.asarray([7.5], np.float32)
 out = port.fused_blur_rotate_batched(out, 0.0, angles, stream=False)
 res = port.apply_all_transformations(x, 0, device="cpu")
 assert sorted(res) == sorted(port.PARAM_GRIDS)
+res = port.apply_all_transformations(x, 0, device="cpu", pil_parity_scale_shear=False,
+                                     pil_parity_rotation=True)
+assert sorted(res) == sorted(port.PARAM_GRIDS)
+import torch
+t = torch.from_numpy(x)
+assert port.apply_rotation(t, 60.0).shape == t.shape and port.random_zoom(t, 0.3).shape == t.shape
 print("ok")
 """
     env = dict(os.environ)

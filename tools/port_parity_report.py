@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""How far the PyTorch port's warps sit from the JAX package, on the CPU.
+
+    JAX_PLATFORMS=cpu python3 tools/port_parity_report.py
+
+Prints one JSON line per gate of the port's warp and fast-sweep tests
+(tests/test_torch_warp.py, tests/test_torch_apply_all_fast.py), on the same
+inputs: the largest difference in LSB and the share of values (or, for
+NEAREST rotation, of pixels) that differ, against the JAX function (Pallas
+in interpret mode) and the numpy oracle. The tests assert the budgets;
+this prints the measured values. Runs in about a minute.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+from PIL import Image  # noqa: E402
+
+from imagetransformations_tpu.core.grids import PARAM_GRIDS  # noqa: E402
+from imagetransformations_tpu.oracle import warp as oww  # noqa: E402
+from imagetransformations_tpu.ops import warp as jwp  # noqa: E402
+from imagetransformations_tpu.ops.pallas import resample as jrs  # noqa: E402
+from imagetransformations_tpu.ops.pallas import rotate_gather as jrg  # noqa: E402
+from imagetransformations_tpu.pipeline import batch as jbatch  # noqa: E402
+
+import imagetransformations_tpu_torch as port  # noqa: E402
+from imagetransformations_tpu_torch.ops import warp as twp  # noqa: E402
+from imagetransformations_tpu_torch.ops.hopper.resample import zoom_bilinear_batched  # noqa: E402
+from imagetransformations_tpu_torch.ops.hopper.rotate_gather import (  # noqa: E402
+    pil_rotate_nearest_batched,
+)
+from imagetransformations_tpu_torch.pipeline import batch as tbatch  # noqa: E402
+
+ZOOM_FACTORS = np.asarray([*PARAM_GRIDS["scale"].values(), 0.85, 1.45], np.float32)
+
+
+def values(a, b) -> dict:
+    err = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
+    return {"max_lsb": int(err.max()), "frac": float((err > 0).mean())}
+
+
+def pixels(a, b) -> dict:
+    return {"pixel_frac": float((np.asarray(a) != np.asarray(b)).any(-1).mean())}
+
+
+def emit(gate: str, shape, against: str, **res) -> None:
+    print(json.dumps({"gate": gate, "shape": list(shape), "against": against, **res}),
+          flush=True)
+
+
+def ulps(a, b) -> int:
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return int(np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32)).max())
+
+
+def main() -> int:
+    # matrices: every entry, grid angles and off the grid
+    grid = np.asarray([*PARAM_GRIDS["rotation"].values(), 45.0, -45.0], np.float32)
+    off = np.asarray([60.0, 90.0, -60.0, 7.3, 137.0], np.float32)
+    for w, h in ((32, 32), (53, 37), (48, 64), (512, 512)):
+        for name, a in (("grid", grid), ("off_grid", off)):
+            emit("rotation_matrix", (h, w), f"jax ({name} angles)",
+                 max_ulp=ulps(twp.rotation_matrix(a, w, h), jwp.rotation_matrix(a, w, h)))
+    f = np.asarray([*ZOOM_FACTORS, 0.5, 4.0, 0.3], np.float32)
+    emit("zoom_matrix", (37, 53), "jax",
+         max_ulp=ulps(twp.zoom_matrix(f, 53, 37), jwp.zoom_matrix(f, 53, 37)))
+
+    # zoom (kernel #10): the scale grid and the budget bounds
+    for shape in ((8, 64, 48, 3), (8, 32, 32, 3), (8, 37, 53, 3)):
+        imgs = np.random.default_rng(1234).integers(0, 256, shape, dtype=np.uint8)
+        out = zoom_bilinear_batched(torch.from_numpy(imgs), ZOOM_FACTORS).numpy()
+        want = np.asarray(jrs.zoom_bilinear_batched(jnp.asarray(imgs), jnp.asarray(ZOOM_FACTORS)))
+        h, w = shape[1:3]
+        ref = np.stack([oww.affine_bilinear(imgs[i], np.asarray(jwp.zoom_matrix(float(v), w, h),
+                                                                np.float64)[0])
+                        for i, v in enumerate(ZOOM_FACTORS)])
+        emit("zoom_bilinear", shape, "jax kernel", **values(out, want),
+             per_factor=[values(out[i], want[i])["frac"] for i in range(len(ZOOM_FACTORS))])
+        emit("zoom_bilinear", shape, "f64 oracle", **values(out, ref))
+        emit("zoom_bilinear (jax kernel itself)", shape, "f64 oracle", **values(want, ref))
+
+    # NEAREST rotation (kernel #12)
+    cases = [((4, 32, 32), [-20.0, 0.0, 10.0, 22.5]), ((2, 37, 53), [7.0, -44.0]),
+             ((1, 96, 64), [22.5]), ((3, 40, 24), [-7.5, 2.5, 17.5]),
+             ((2, 32, 32), [45.0, -45.0])]
+    for (n, h, w), angles in cases:
+        imgs = np.random.default_rng(1234).integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+        a = np.asarray(angles, np.float32)
+        out = pil_rotate_nearest_batched(torch.from_numpy(imgs), a).numpy()
+        want = np.asarray(jrg.pil_rotate_nearest_batched(jnp.asarray(imgs), jnp.asarray(a)))
+        for i, ang in enumerate(a):
+            pil = np.asarray(Image.fromarray(imgs[i]).rotate(-float(ang), fillcolor=(0, 0, 0)))
+            emit("pil_rotate_nearest", (h, w, float(ang)), "jax kernel / PIL / f64 oracle",
+                 jax=pixels(out[i], want[i])["pixel_frac"], pil=pixels(out[i], pil)["pixel_frac"],
+                 oracle=pixels(out[i], oww.apply_rotation(imgs[i], float(ang)))["pixel_frac"])
+
+    # the sweep with both non-default flags, as tests/test_torch_apply_all_fast.py runs it
+    imgs = np.random.default_rng(7).integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
+    res = port.apply_all_transformations(imgs, 3, device="cpu", pil_parity_scale_shear=False,
+                                         pil_parity_rotation=True)
+    x = jnp.asarray(imgs)
+    v = {t: jnp.asarray(res[t][0].numpy()) for t in ("scale", "shear", "rotation")}
+    emit("apply_all fast scale", imgs.shape, "jax _zoom_fast",
+         **values(res["scale"][1].numpy(), jbatch._zoom_fast(x, v["scale"])))
+    emit("apply_all fast shear", imgs.shape, "jax _shear_fast_batched",
+         **values(res["shear"][1].numpy(), jbatch._shear_fast_batched(x, v["shear"], 1.0)))
+    want = np.asarray(jrg.pil_rotate_nearest_batched(x, v["rotation"], max_angle_deg=23.0))
+    emit("apply_all PIL rotation", imgs.shape, "jax pil_rotate_nearest_batched",
+         pixel_frac_max=max(pixels(res["rotation"][1].numpy()[i], want[i])["pixel_frac"]
+                            for i in range(len(imgs))))
+
+    # the per-grid-value sweep
+    rng = np.random.default_rng(1234)
+    imgs = rng.integers(0, 256, (6, 24, 20, 3), dtype=np.uint8)
+    vals = np.asarray([0.3, 0.0, 0.7, 0.3, 0.7, 0.0], np.float32)
+    out = tbatch._value_sweep_per_value(torch.from_numpy(imgs), torch.from_numpy(vals), "shear",
+                                        (0.0, 0.3, 0.7))
+    want = jbatch._value_sweep_per_value(jnp.asarray(imgs), jnp.asarray(vals), "shear",
+                                         (0.0, 0.3, 0.7))
+    emit("_value_sweep_per_value shear", imgs.shape, "jax", **values(out.numpy(), want))
+    imgs = np.random.default_rng(1234).integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
+    vals = np.asarray([60.0, -22.5, 15.0, 0.0, 60.0, -22.5], np.float32)
+    grid = (-22.5, 0.0, 15.0, 60.0)
+    out = tbatch._value_sweep_per_value(torch.from_numpy(imgs), torch.from_numpy(vals),
+                                        "rotation_pil", grid).numpy()
+    want = np.asarray(jbatch._value_sweep_per_value(jnp.asarray(imgs), jnp.asarray(vals),
+                                                    "rotation_pil", grid))
+    emit("_value_sweep_per_value rotation_pil", imgs.shape, "jax",
+         pixel_frac_max=max(pixels(out[i], want[i])["pixel_frac"] for i in range(len(imgs))))
+
+    # affine_warp against JAX and the f64 oracles
+    imgs = np.random.default_rng(1234).integers(0, 256, (2, 37, 53, 3), dtype=np.uint8)
+    mats = {
+        "rotation 33": np.asarray(jwp.rotation_matrix(33.0, 53, 37), np.float32)[0],
+        "zoom 1.3": np.asarray(jwp.zoom_matrix(1.3, 53, 37), np.float32)[0],
+        "shear 0.4": np.asarray(oww.shear_matrix(0.4, 37), np.float32),
+    }
+    oracles = {"nearest": oww.affine_nearest, "bilinear": oww.affine_bilinear,
+               "bicubic": oww.affine_bicubic}
+    for method, oracle in oracles.items():
+        for name, m in mats.items():
+            out = twp.affine_warp(torch.from_numpy(imgs), torch.from_numpy(m),
+                                  method=method).numpy()
+            want = np.asarray(jwp.affine_warp(jnp.asarray(imgs), jnp.asarray(m), method=method))
+            ref = np.stack([oracle(im, m.astype(np.float64)) for im in imgs])
+            emit(f"affine_warp {method} {name}", imgs.shape, "jax", **values(out, want))
+            emit(f"affine_warp {method} {name}", imgs.shape, "f64 oracle", **values(out, ref))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
