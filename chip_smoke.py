@@ -5,13 +5,16 @@
 
 Builds the hand-written CUDA kernels from ``imagetransformations_tpu_torch/
 csrc`` with nvcc, holds each against its plain PyTorch version on the card
-at full size (0 LSB), drives the main path (``build_chain_fn`` with static
-and per-image angles, ``fused_blur_rotate_image`` and the 8-type
+at full size (0 LSB), drives the main paths (``build_chain_fn`` with static
+and per-image angles, in strict mode, with an affine run, a rotation beyond
+45 degrees and a photometric chain; ``fused_blur_rotate_image``; the 8-type
 ``apply_all_transformations`` sweep with its default flags and with the
-fast scale/shear and PIL rotation) at the benchmark shapes with the launch
-counters reset just before and read just after, times each sweep type, and
-times each kernel beside its bound and, where one exists, a PyTorch call
-that samples the same way. Prints one JSON line per phase; the last line is
+fast scale/shear and PIL rotation; ``blur_separable``, ``rotate_3shear``,
+``blur_rotate_fused`` and ``shear_rows_per_image``) at the benchmark shapes,
+each with the launch counters reset just before it and read just after,
+times each sweep type, and times each kernel beside its bound and, where
+one exists, a PyTorch call that computes the same function or samples the
+same way. Prints one JSON line per phase; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
 Imports nothing of JAX.
@@ -20,6 +23,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -43,6 +47,7 @@ SHEAR_GRID = [round(0.1 * i, 1) for i in range(11)]
 SCALE_GRID = [0.9, 1.0, 1.1, 1.2, 1.3, 1.4]
 ZOOM_BOUNDS = [0.85, 1.45]  # the fast scale's budget: scale grid min/max -+ 0.05
 APPLY_ALL_BUDGET = 23.0  # max |grid angle| + 0.5, as pipeline/batch.py routes it
+PER_IMAGE_PAD = 20  # shear_rows_per_image's pad_px on the main path (shifts to +-30)
 # apply_all's flags by main-path run kind
 SWEEP_FLAGS = {
     "apply_all": {},
@@ -87,6 +92,18 @@ KERNELS = {
         source="imagetransformations_tpu_torch/csrc/rotate_nearest.cu",
         replaces="imagetransformations_tpu/ops/pallas/rotate_gather.py:76",
     ),
+    "blur_separable": dict(
+        source="imagetransformations_tpu_torch/csrc/blur_separable.cu",
+        replaces="imagetransformations_tpu/ops/pallas/blur.py:36",
+    ),
+    "shear_rows": dict(
+        source="imagetransformations_tpu_torch/csrc/shear_rows.cu",
+        replaces="imagetransformations_tpu/ops/pallas/shear.py:67",
+    ),
+    "shear_rows_per_image": dict(
+        source="imagetransformations_tpu_torch/csrc/shear_rows.cu",
+        replaces="imagetransformations_tpu/ops/pallas/shear.py:182",
+    ),
 }
 # why no single PyTorch call is timed beside a kernel (library_ms null)
 NO_LIBRARY = {
@@ -98,6 +115,9 @@ NO_LIBRARY_BLUR_ROTATE = "no single PyTorch call computes blur + 3-shear rotatio
 LIBRARY_NOTE = ("F.grid_sample(mode={mode}, padding_mode='zeros', align_corners=False) on the "
                 "f32 NCHW batch, grid precomputed outside the timed region: samples the same "
                 "points up to border and rounding rules, not bit-equal; f32 in and out")
+BLUR_LIBRARY_NOTE = ("F.conv2d of the KxK outer product of the taps, groups=3, on the reflect-"
+                     "padded f32 NCHW batch (padding outside the timed region), TF32 off: the "
+                     "same filter summed in another order, not bit-equal; f32 in and out")
 
 
 def emit(obj) -> None:
@@ -160,6 +180,11 @@ def ops_rgb(p: int, strict: bool, gray: bool, identity: bool) -> int:
     # strict] + quantization; gray adds 3 mul, 2 add, mul, add, cvt per pixel
     per_ch = 1 + 2 * (1 + 3 * p) + int(strict) + (0 if identity else 9 + 3 * int(strict)) + 1
     return 3 * per_ch + (8 if gray else 0)
+
+
+def ops_blur(k: int) -> int:
+    # per value: cvt, K mul + K-1 add a pass (two passes), rint, clip (2), cvt
+    return 1 + 2 * (2 * k - 1) + 4
 
 
 def ops_shear_bicubic(c: int) -> int:
@@ -259,18 +284,29 @@ def nvidia_smi() -> str:
 
 
 def main_path_runs():
-    """The main path as a user calls it, one entry per run:
-    (label, fn, shape, seed, ref, reps). ``ref`` names the parity case whose
-    plain output the run's output must equal (same seed, same inputs), or is
-    a key of SWEEP_FLAGS for the sweeps, whose kernel-carried types are held
-    against the plain versions on the values the sweep drew.
-    tools/profile_torch_port.py profiles the same runs."""
+    """The main paths as a user calls them, one entry per run:
+    (label, fn, shape, seed, ref, reps, kernels). ``ref`` names the parity
+    case whose plain output the run's output must equal (same seed, same
+    inputs), or is a key of SWEEP_FLAGS for the sweeps, whose
+    kernel-carried types are held against the plain versions on the values
+    the sweep drew, or is a callable that computes the run's plain
+    composition from its input. ``kernels`` are the launch counters the run
+    must raise. tools/profile_torch_port.py profiles the same runs."""
+    import torch
+
     from imagetransformations_tpu_torch import (
         OpSpec,
         apply_all_transformations,
         build_chain_fn,
         fused_blur_rotate_image,
     )
+    from imagetransformations_tpu_torch.ops import elementwise as ew
+    from imagetransformations_tpu_torch.ops import histogram as hg
+    from imagetransformations_tpu_torch.ops import stencil as st
+    from imagetransformations_tpu_torch.ops import warp as wp
+    from imagetransformations_tpu_torch.ops.hopper import blur as bl
+    from imagetransformations_tpu_torch.ops.hopper import rotate_gather as rg
+    from imagetransformations_tpu_torch.ops.hopper import shear as sh
 
     blur, gray = OpSpec("blur", {"radius": BLUR_RADIUS}), OpSpec("grayscale")
     rotation = OpSpec("rotation", {"angle": ANGLE})
@@ -278,6 +314,17 @@ def main_path_runs():
     # bench.py's traced-angle shape: one angle an image, linspace(-22.5, 22.5)
     fn_traced = build_chain_fn(
         [blur, OpSpec("rotation", {"angle": traced_angles(SHAPE_512[0])}), gray])
+    fn_strict = build_chain_fn([blur, rotation, gray], strict_parity=True)
+    affine = [OpSpec("translation", {"tx": 12, "ty": -7}), OpSpec("zoom", {"factor": 1.2}),
+              OpSpec("rotation", {"angle": 10.0})]
+    fn_affine = build_chain_fn(affine)
+    fn_rot60 = build_chain_fn([OpSpec("rotation", {"angle": 60.0})])
+    photometric = [("brightness", {"factor": 0.05}), ("contrast", {"alpha": 1.2}),
+                   ("sharpness", {"factor": 1.5}), ("histogram_equalization", {}),
+                   ("invert", {})]
+    fn_photo = build_chain_fn([OpSpec(n, p) for n, p in photometric])
+    n, h, _ = SHAPE_512
+    per_image_shifts = per_image_row_shifts(torch, n, h, "cuda")
 
     def strict(x):
         return fused_blur_rotate_image(x, BLUR_RADIUS, ANGLE, grayscale_out=True, stream=False)
@@ -288,23 +335,77 @@ def main_path_runs():
     def sweep_fast(x):
         return apply_all_transformations(x, SEED, **SWEEP_FLAGS["apply_all_fast"])
 
+    def strict_plain(x):
+        m = wp.rotation_matrix(ANGLE, x.shape[2], x.shape[1], device=x.device)
+        m = m.expand(x.shape[0], 6).contiguous()
+        return ew.grayscale(rg.pil_rotate_nearest_plain(st.gaussian_blur_plain(x, BLUR_RADIUS),
+                                                        m, 0))
+
+    def affine_plain(x):
+        w, h = x.shape[2], x.shape[1]
+        m = wp.translation_matrix(12, -7, device=x.device)
+        m = wp.compose_matrices(wp.zoom_matrix(1.2, w, h, device=x.device), m)
+        m = wp.compose_matrices(wp.rotation_matrix(10.0, w, h, device=x.device), m)
+        return wp.affine_warp(x, m, method="bilinear", fill=0.0)
+
+    def rot60_plain(x):
+        m = wp.rotation_matrix(60.0, x.shape[2], x.shape[1], device=x.device)
+        return wp.affine_warp(x, m, method="bilinear", fill=0.0)
+
+    def photo_plain(x):
+        x = ew.apply_contrast(ew.apply_brightness(x, 0.05), 1.2)
+        return ew.invert(hg.histogram_equalization(st.sharpen(x, 1.5)))
+
     return [
-        ("chain blur>rotate>gray 512", fn_gray, SHAPE_512, SEED + 0, (SHAPE_512, True, True), 20),
-        ("chain blur>rotate>gray 224", fn_gray, SHAPE_224, SEED + 1, (SHAPE_224, True, True), 20),
+        ("chain blur>rotate>gray 512", fn_gray, SHAPE_512, SEED + 0, (SHAPE_512, True, True), 20,
+         ("luma_blur_rotate",)),
+        ("chain blur>rotate>gray 224", fn_gray, SHAPE_224, SEED + 1, (SHAPE_224, True, True), 20,
+         ("luma_blur_rotate",)),
         ("chain blur>rotate>gray 32 (cifar)", fn_gray, SHAPE_32, SEED + 3,
-         (SHAPE_32, True, True), 20),
-        ("chain blur>rotate 512", fn_rgb, SHAPE_512, SEED + 4, (SHAPE_512, False, True), 10),
+         (SHAPE_32, True, True), 20, ("luma_blur_rotate_packed",)),
+        ("chain blur>rotate 512", fn_rgb, SHAPE_512, SEED + 4, (SHAPE_512, False, True), 10,
+         ("rgb_blur_rotate",)),
         ("fused_blur_rotate_image strict gray 512", strict, SHAPE_512, SEED + 5,
-         (SHAPE_512, True, False), 10),
+         (SHAPE_512, True, False), 10, ("rgb_blur_rotate",)),
         ("chain blur>rotate(per-image angles)>gray 512", fn_traced, SHAPE_512, SEED + 20,
-         "traced gray 512", 20),
-        ("apply_all_transformations 512", sweep, SHAPE_512, SEED + 30, "apply_all", 5),
-        ("apply_all_transformations 32 (cifar)", sweep, SHAPE_32, SEED + 31, "apply_all", 5),
+         "traced gray 512", 20, ("luma_blur_rotate_traced",)),
+        ("apply_all_transformations 512", sweep, SHAPE_512, SEED + 30, "apply_all", 5,
+         ("rgb_blur_rotate_traced", "shear_bicubic")),
+        ("apply_all_transformations 32 (cifar)", sweep, SHAPE_32, SEED + 31, "apply_all", 5,
+         ("rgb_blur_rotate_traced", "shear_bicubic")),
         ("apply_all_transformations fast+pil-rotation 512", sweep_fast, SHAPE_512, SEED + 32,
-         "apply_all_fast", 5),
+         "apply_all_fast", 5, ("shear_rows_logrouted", "zoom_bilinear", "pil_rotate_nearest")),
         ("apply_all_transformations fast+pil-rotation 32 (cifar)", sweep_fast, SHAPE_32,
-         SEED + 33, "apply_all_fast", 5),
+         SEED + 33, "apply_all_fast", 5,
+         ("shear_rows_logrouted", "zoom_bilinear", "pil_rotate_nearest")),
+        ("chain strict blur>rotate>gray 512", fn_strict, SHAPE_512, SEED + 40, strict_plain, 10,
+         ("blur_separable", "pil_rotate_nearest")),
+        ("chain rotation 60 512", fn_rot60, SHAPE_512, SEED + 41, rot60_plain, 5, ()),
+        ("chain affine translation>zoom>rotation(10) 512", fn_affine, SHAPE_512, SEED + 42,
+         affine_plain, 5, ()),
+        ("chain photometric 512", fn_photo, SHAPE_512, SEED + 43, photo_plain, 5, ()),
+        ("blur_separable 512 r1.5", lambda x: bl.blur_separable(x, BLUR_RADIUS), SHAPE_512,
+         SEED + 44, lambda x: st.gaussian_blur_plain(x, BLUR_RADIUS), 20, ("blur_separable",)),
+        ("rotate_3shear 512 15deg", lambda x: sh.rotate_3shear(x, ANGLE), SHAPE_512, SEED + 45,
+         lambda x: sh.rotate_3shear_plain(x, ANGLE), 20, ("shear_rows",)),
+        ("blur_rotate_fused gray 512",
+         lambda x: sh.blur_rotate_fused(x, BLUR_RADIUS, ANGLE, grayscale_out=True), SHAPE_512,
+         SEED + 46, lambda x: sh.blur_rotate_fused_plain(x, BLUR_RADIUS, ANGLE,
+                                                         grayscale_out=True), 20,
+         ("blur_separable", "shear_rows")),
+        ("shear_rows_per_image 512",
+         lambda x: sh.shear_rows_per_image(x, per_image_shifts, fill=255, pad_px=PER_IMAGE_PAD),
+         SHAPE_512, SEED + 47,
+         lambda x: sh.shear_rows_plain(x, per_image_shifts, 255, PER_IMAGE_PAD), 20,
+         ("shear_rows_per_image",)),
     ]
+
+
+def per_image_row_shifts(torch, n: int, h: int, device):
+    """[n, h] f32 row shifts, uniform in +-30 px from a seed: beyond
+    PER_IMAGE_PAD on part of the rows, so saturation is exercised."""
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    return ((torch.rand((n, h), generator=g, device=device) - 0.5) * 60.0).contiguous()
 
 
 def check_sweep(torch, x, res, kind: str) -> dict:
@@ -335,7 +436,7 @@ def check_sweep(torch, x, res, kind: str) -> dict:
             x, wp.rotation_matrix(values, w, h, device=x.device), 0)
         values = res["shear"][0]
         bound_px = batch.fast_shear_budget(max(SHEAR_GRID), h)
-        plain["shear"] = sh.shear_rows_logrouted_plain(
+        plain["shear"] = sh.shear_rows_plain(
             x, batch.fast_shear_shifts(values, h, x.device), 255, min(bound_px + 1, w + 2))
         plain["scale"] = rs.zoom_bilinear_plain(x, res["scale"][0])
     else:
@@ -367,8 +468,14 @@ def main() -> int:
     from imagetransformations_tpu_torch.ops.hopper import resample as rs
     from imagetransformations_tpu_torch.ops.hopper import rotate_gather as rg
     from imagetransformations_tpu_torch.ops.hopper import shear as sh
+    from imagetransformations_tpu_torch.ops.hopper import blur as bl
+    from imagetransformations_tpu_torch.ops import stencil as st
     from imagetransformations_tpu_torch.pipeline import batch
     from imagetransformations_tpu_torch.pipeline.batch import TYPES
+
+    # no TF32 anywhere: the conv2d yardstick and any matrix product stay f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---- device -------------------------------------------------------------
     smi = nvidia_smi()
@@ -527,11 +634,11 @@ def main() -> int:
         row = {"phase": "parity", "kernel": "shear_rows_logrouted", "shape": [*shape, 3],
                "factors": SHEAR_GRID, "b_px": b_px, "beyond_budget_row": float(over[0, h // 2])}
         kern = sh.shear_rows_logrouted(x, shifts, fill=255, max_shift_px=bound_px)
-        row["max_lsb"] = max_lsb(torch, kern, sh.shear_rows_logrouted_plain(x, shifts, 255, b_px))
+        row["max_lsb"] = max_lsb(torch, kern, sh.shear_rows_plain(x, shifts, 255, b_px))
         row["max_lsb_entry_vs_kernel"] = max_lsb(torch, out, kern)
         kern = sh.shear_rows_logrouted(x, over, fill=255, max_shift_px=bound_px)
         row["max_lsb_beyond_budget"] = max_lsb(
-            torch, kern, sh.shear_rows_logrouted_plain(x, over, 255, b_px))
+            torch, kern, sh.shear_rows_plain(x, over, 255, b_px))
         # the zoom over the scale grid and both budget bounds; random_zoom
         f = torch.from_numpy(cycled(SCALE_GRID + ZOOM_BOUNDS, n)).to(dev)
         zoom_rows = {"phase": "parity", "kernel": "zoom_bilinear", "shape": [*shape, 3],
@@ -567,46 +674,116 @@ def main() -> int:
             errs[kernel] = max(errs[kernel], err)
         del x, out, kern
 
-    # ---- main path: the user-facing entry points, counters reset ----------
+    # separable blur, row shifts and the 3-shear rotations built on them:
+    # each entry point against its plain version on the same inputs
+    def parity_row(kernel, row, got, want):
+        row["max_lsb"] = max(row.get("max_lsb", 0), max_lsb(torch, got, want))
+        errs[kernel] = max(errs[kernel], row["max_lsb"])
+
+    new_rows = []
+    for shape, seed in ((SHAPE_512, SEED + 50), (SHAPE_32, SEED + 51), ((4, 5, 7), SEED + 52)):
+        x = images(torch, shape, seed)
+        n, h, w = shape
+        row = {"phase": "parity", "kernel": "blur_separable", "shape": [*shape, 3],
+               "radii": [0.5, 1.5, 5.0] if h > 5 else [1.5]}
+        for r in row["radii"]:
+            parity_row("blur_separable", row,
+                       routed("blur_separable", lambda: bl.blur_separable(x, r)),
+                       st.gaussian_blur_plain(x, r))
+        new_rows.append(row)
+        if h <= 5:
+            continue
+        # one shift vector for the batch, within and beyond an explicit pad
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        shifts = ((torch.rand((h,), generator=g, device="cuda") - 0.5) * 60.0).contiguous()
+        row = {"phase": "parity", "kernel": "shear_rows", "shape": [*shape, 3],
+               "shift_range": [float(shifts.min()), float(shifts.max())], "pad_px": [None, 10]}
+        for pad in (None, 10):
+            b_px = max(pad or math.ceil(float(shifts.abs().max())) + 1, 1)
+            for post in (None, "grayscale"):
+                got = routed("shear_rows", lambda: sh.shear_rows(x, shifts, fill=7, pad_px=pad,
+                                                                 postop=post))
+                parity_row("shear_rows", row, got,
+                           sh.shear_rows_plain(x, shifts, 7, b_px, post == "grayscale"))
+        for angle in (ANGLE, -44.0):
+            parity_row("shear_rows", row, sh.rotate_3shear(x, angle),
+                       sh.rotate_3shear_plain(x, angle))
+            # the strict rgb_blur_rotate kernel at radius 0 computes the same function
+            row[f"max_lsb_rotate_3shear_vs_rgb_blur_rotate_strict_r0_{angle:g}deg"] = max_lsb(
+                torch, sh.rotate_3shear(x, angle),
+                fused_blur_rotate_image(x, 0.0, angle, stream=False))
+        parity_row("shear_rows", row,
+                   sh.blur_rotate_fused(x, BLUR_RADIUS, ANGLE, grayscale_out=True),
+                   sh.blur_rotate_fused_plain(x, BLUR_RADIUS, ANGLE, grayscale_out=True))
+        new_rows.append(row)
+        per_image = per_image_row_shifts(torch, n, h, "cuda")
+        row = {"phase": "parity", "kernel": "shear_rows_per_image", "shape": [*shape, 3],
+               "pad_px": PER_IMAGE_PAD,
+               "saturated_rows": int((per_image.floor().abs() > PER_IMAGE_PAD).sum())}
+        got = routed("shear_rows_per_image",
+                     lambda: sh.shear_rows_per_image(x, per_image, fill=255, pad_px=PER_IMAGE_PAD))
+        parity_row("shear_rows_per_image", row, got,
+                   sh.shear_rows_plain(x, per_image, 255, PER_IMAGE_PAD))
+        new_rows.append(row)
+        del x, got
+    torch.cuda.synchronize()
+    for row in new_rows:
+        emit(row)
+        err = max(v for k, v in row.items() if k.startswith("max_lsb"))
+        if err != 0:
+            fail(f"parity {row['kernel']} {row['shape']} differs by {err} LSB")
+
+    # ---- main paths: the user-facing entry points, counters reset around each
     runs = main_path_runs()
     inputs = {label: images(torch, shape, seed) for label, _, shape, seed, *_ in runs}
     torch.cuda.synchronize()
-    for k in mk.LAUNCHES:
-        mk.LAUNCHES[k] = 0
+    launches = {k: 0 for k in mk.LAUNCHES}
     results = []
-    for label, fn, shape, _, ref, reps in runs:
+    for label, fn, shape, _, ref, reps, kernels in runs:
         x = inputs[label]
+        for k in mk.LAUNCHES:
+            mk.LAUNCHES[k] = 0
         out = fn(x)
         ms = time_ms(torch, lambda: fn(x), reps)
+        torch.cuda.synchronize()
+        run_launches = {k: v for k, v in mk.LAUNCHES.items() if v}
+        for k, v in run_launches.items():
+            launches[k] += v
+        missing = [k for k in kernels if not run_launches.get(k)]
+        if missing:
+            fail(f"{label}: kernels {missing} were not launched: {run_launches}")
         n, h, w = shape
         row = {"run": label, "shape": [*shape, 3], "ms": ms,
-               "gpix_per_s": n * h * w / (ms * 1e-3) / 1e9}
-        if ref in SWEEP_FLAGS:
+               "gpix_per_s": n * h * w / (ms * 1e-3) / 1e9, "launches": run_launches}
+        if not callable(ref) and ref in SWEEP_FLAGS:
             row["max_lsb_vs_plain"] = check_sweep(torch, x, out, ref)
         else:
             if out.shape != x.shape or out.dtype != torch.uint8 or out.device != x.device:
                 fail(f"{label}: bad output {tuple(out.shape)} {out.dtype} {out.device}")
-            is_gray = ref[1] if isinstance(ref, tuple) else "gray" in ref
-            if is_gray:
-                if not (torch.equal(out[..., 0], out[..., 1])
-                        and torch.equal(out[..., 0], out[..., 2])):
-                    fail(f"{label}: grayscale channels differ")
-            # the same seed made the parity case's input: the output must
-            # equal the plain version computed there
-            row["max_lsb_vs_plain"] = max_lsb(torch, out, refs[ref])
+            if callable(ref):
+                want = ref(x)  # the run's plain composition on the same input
+            else:
+                is_gray = ref[1] if isinstance(ref, tuple) else "gray" in ref
+                if is_gray:
+                    if not (torch.equal(out[..., 0], out[..., 1])
+                            and torch.equal(out[..., 0], out[..., 2])):
+                        fail(f"{label}: grayscale channels differ")
+                # the same seed made the parity case's input: the output must
+                # equal the plain version computed there
+                want = refs[ref]
+            row["max_lsb_vs_plain"] = max_lsb(torch, out, want)
             if row["max_lsb_vs_plain"] != 0:
                 fail(f"{label}: differs from the plain version by {row['max_lsb_vs_plain']} LSB")
         results.append(row)
     torch.cuda.synchronize()
-    launches = dict(mk.LAUNCHES)
     emit({"phase": "main_path", "runs": results, "launches": launches})
     for k, v in launches.items():
         if v <= 0:
-            fail(f"kernel {k} was not launched on the main path")
+            fail(f"kernel {k} was not launched on the main paths")
 
     # ---- apply_all by type: the sweep with one type at a time --------------
-    for label, _, shape, _, ref, _ in runs:
-        if ref not in SWEEP_FLAGS:
+    for label, _, shape, _, ref, *_ in runs:
+        if callable(ref) or ref not in SWEEP_FLAGS:
             continue
         x = inputs[label]
         ms = {t: time_ms(torch, lambda: apply_all_transformations(x, SEED, types=(t,),
@@ -634,7 +811,7 @@ def main() -> int:
                 bound_px = batch.fast_shear_budget(max(SHEAR_GRID), h)
                 b_px = min(bound_px + 1, w + 2)
                 run = lambda: sh.shear_rows_logrouted(x, shifts, 255, bound_px)
-                plain = lambda: sh.shear_rows_logrouted_plain(x, shifts, 255, b_px)
+                plain = lambda: sh.shear_rows_plain(x, shifts, 255, b_px)
                 b_ms, b_by = bound_shear_rows(torch, x, shifts, b_px)
                 lib = grid_sample_call(torch, x, (xo + shifts[:, :, None]).expand(n, h, w),
                                        yo.expand(n, h, w), "bilinear")
@@ -661,6 +838,52 @@ def main() -> int:
                 mode, lib_mode = "rotation grid angles -22.5..22.5, fill 0", "'nearest'"
             library_ms = time_ms(torch, lib, 20)
             library_note = LIBRARY_NOTE.format(mode=lib_mode)
+        elif kernel == "blur_separable":
+            shape = SHAPE_512
+            n, h, w = shape
+            x = images(torch, shape, SEED + 100)
+            run = lambda: bl.blur_separable(x, BLUR_RADIUS)
+            plain = lambda: st.gaussian_blur_plain(x, BLUR_RADIUS)
+            taps = bl.blur_taps(BLUR_RADIUS, x.device)
+            k = taps.numel()
+            b_ms, b_by = bound(n, h, w, 3, 3, 3 * ops_blur(k))
+            # the yardstick: one grouped conv2d of the KxK outer-product taps
+            # on the reflect-padded f32 NCHW batch, padded outside the timing
+            p = k // 2
+            xf = torch.nn.functional.pad(x.permute(0, 3, 1, 2).to(torch.float32), (p, p, p, p),
+                                         mode="reflect").contiguous()
+            weight = torch.outer(taps, taps).expand(3, 1, k, k).contiguous()
+            lib = lambda: torch.nn.functional.conv2d(xf, weight, groups=3)
+            library_ms, library_note = time_ms(torch, lib, 20), BLUR_LIBRARY_NOTE
+            mode = f"r {BLUR_RADIUS} ({k} taps)"
+        elif kernel in ("shear_rows", "shear_rows_per_image"):
+            # shear_rows: pass 1 of rotate_3shear at 15 degrees (one shift
+            # vector); shear_rows_per_image: the main path's [n, h] shifts
+            shape = SHAPE_512
+            n, h, w = shape
+            x = images(torch, shape, SEED + 100)
+            if kernel == "shear_rows":
+                a, _ = sh._paeth_params(ANGLE)
+                host = sh._row_shifts(h, a, h / 2.0)
+                s1 = torch.from_numpy(host).to(x.device)
+                b_px = math.ceil(float(abs(host).max())) + 1
+                run = lambda: sh.shear_rows(x, s1, pad_px=b_px)  # as rotate_3shear calls it
+                plain = lambda: sh.shear_rows_plain(x, s1, 0, b_px)
+                shifts = s1.expand(n, h)
+                mode = f"rotate_3shear pass 1 at {ANGLE} deg, fill 0"
+            else:
+                shifts = per_image_row_shifts(torch, n, h, x.device)
+                b_px = PER_IMAGE_PAD
+                run = lambda: sh.shear_rows_per_image(x, shifts, fill=255, pad_px=b_px)
+                plain = lambda: sh.shear_rows_plain(x, shifts, 255, b_px)
+                mode = f"random shifts +-30 px, pad_px {b_px} (saturating), fill 255"
+            b_ms, b_by = bound_shear_rows(torch, x, shifts, b_px)
+            xo = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, w) + 0.5
+            yo = torch.arange(h, dtype=torch.float32, device=x.device).view(1, h, 1) + 0.5
+            lib = grid_sample_call(torch, x, (xo + shifts[:, :, None]).expand(n, h, w),
+                                   yo.expand(n, h, w), "bilinear")
+            library_ms, library_note = time_ms(torch, lib, 20), LIBRARY_NOTE.format(
+                mode="'bilinear'")
         elif kernel == "shear_bicubic":
             shape = SHAPE_512
             x = images(torch, shape, SEED + 100)

@@ -48,12 +48,14 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _P, _I, _P),
     # x, out, factors, n, h, w, c, stream
     "shear_bicubic": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # x, out, shifts, n, h, w, c, fill, b_px, stream
-    "shear_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, out, shifts, shift_stride, n, h, w, c, fill, b_px, grayscale, stream
+    "shear_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, out, factors, n, h, w, c, stream
     "zoom_bilinear": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, out, mats, n, h, w, c, fill, stream
     "rotate_nearest": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, out, taps, p, n, h, w, c, stream
+    "blur_separable": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 #: kernel launches, by kernel: each wrapper call that launches its CUDA
@@ -61,13 +63,16 @@ SIGNATURES = {
 #: ``megakernel.LAUNCHES`` is the same object. The luma kernel counts under
 #: "luma_blur_rotate_packed" when it runs many images a block, and the
 #: blur-rotate kernels under "*_traced" when their shifts are per image
-#: (the counterparts of the per-image-angle Pallas kernels). The libraries
-#: shear_rows and rotate_nearest count under the names of the Pallas entry
-#: points they port, "shear_rows_logrouted" and "pil_rotate_nearest".
+#: (the counterparts of the per-image-angle Pallas kernels). The library
+#: shear_rows counts under the Pallas entry point it carries:
+#: "shear_rows_logrouted", "shear_rows" (one shift vector for the batch) or
+#: "shear_rows_per_image"; rotate_nearest counts as "pil_rotate_nearest";
+#: blur_separable as itself, from both its entry points.
 LAUNCHES = {
     "luma_blur_rotate": 0, "luma_blur_rotate_packed": 0, "rgb_blur_rotate": 0,
     "luma_blur_rotate_traced": 0, "rgb_blur_rotate_traced": 0, "shear_bicubic": 0,
     "shear_rows_logrouted": 0, "zoom_bilinear": 0, "pil_rotate_nearest": 0,
+    "blur_separable": 0, "shear_rows": 0, "shear_rows_per_image": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -31,8 +31,9 @@ import torch
 
 from imagetransformations_tpu_torch.core.image import to_uint8_rint, to_uint8_trunc
 from imagetransformations_tpu_torch.ops.hopper import _lib
+from imagetransformations_tpu_torch.ops.hopper.blur import blur_taps
 from imagetransformations_tpu_torch.ops.hopper.shear import _paeth_params, _row_shifts
-from imagetransformations_tpu_torch.ops.stencil import cv2_gaussian_ksize, gaussian_taps
+from imagetransformations_tpu_torch.ops.stencil import gaussian_blur
 
 #: kernel launches, by kernel (the package-wide counters of ``_lib``): each
 #: wrapper call that launches its kernel pair (blur launch + shear launch)
@@ -49,22 +50,25 @@ _LUMA_WEIGHTS = (19595, 38470, 7471)  # PIL L24 weights of R, G, B
 def _params(h: int, w: int, radius: float, angle_deg: float, device: torch.device):
     """(taps f32 [2p+1], p, k1 i32 [h], f1 f32 [h], k2 i32 [w], f2 f32 [w])
     on ``device``. Shifts are f32 from the f64 host math; k = floor(s) and
-    f = s - floor(s) computed in f32, as the JAX package does."""
+    f = s - floor(s) computed in f32, as the JAX package does. Integer
+    shifts are held to +-(w + 1) (k1) and +-(h + 1) (k2): both taps already
+    lie off the canvas there, so the output is the same and near 180
+    degrees the shift still fits an i32."""
     if radius > 0:
-        ksize = cv2_gaussian_ksize(radius)
-        taps = gaussian_taps(ksize, radius).astype(np.float32)
+        taps = blur_taps(radius, device)
     else:
-        taps = np.ones(1, np.float32)
+        taps = torch.ones(1, dtype=torch.float32, device=device)
     a, b = _paeth_params(angle_deg)
     sx = _row_shifts(h, a, h / 2.0)
     sy = _row_shifts(w, b, w / 2.0)
     arrays = (
-        taps,
-        np.floor(sx).astype(np.int32), (sx - np.floor(sx)).astype(np.float32),
-        np.floor(sy).astype(np.int32), (sy - np.floor(sy)).astype(np.float32),
+        np.clip(np.floor(sx), -(w + 1), w + 1).astype(np.int32),
+        (sx - np.floor(sx)).astype(np.float32),
+        np.clip(np.floor(sy), -(h + 1), h + 1).astype(np.int32),
+        (sy - np.floor(sy)).astype(np.float32),
     )
-    t, k1, f1, k2, f2 = (torch.from_numpy(v).to(device) for v in arrays)
-    return t, (len(taps) - 1) // 2, k1, f1, k2, f2
+    k1, f1, k2, f2 = (torch.from_numpy(v).to(device) for v in arrays)
+    return taps, (taps.numel() - 1) // 2, k1, f1, k2, f2
 
 
 @functools.lru_cache(maxsize=8)
@@ -322,24 +326,22 @@ def fused_blur_rotate_image(
     ``stream=False``: per-op uint8 quantization — gaussian_blur -> oracle
     rotate_3shear (-> grayscale), the reference's image-at-a-time semantics.
     ``stream=True``: f32 streaming with ONE final quantization (the fast-mode
-    chain contract; oracle fast_warp.fused_stream_chain). |angle_deg| <= 45.
+    chain contract; oracle fast_warp.fused_stream_chain). Any angle: the
+    kernels gather with bounds checks, as the JAX kernels size their pads
+    from the shifts. Images smaller than the blur window + 2 are blurred
+    first by ``gaussian_blur`` (u8, rint; the ``blur_separable`` kernel on
+    the card), then rotated at radius 0, as the JAX function does.
     """
     if not isinstance(img, torch.Tensor) or img.ndim != 4 or img.dtype != torch.uint8:
         raise ValueError("expected an NHWC uint8 tensor")
     radius, angle_deg = float(radius), float(angle_deg)
-    if abs(angle_deg) > 45.0:
-        raise NotImplementedError(
-            "|angle| > 45 runs the affine warp, not yet ported (ROADMAP A.6)"
-        )
     n, h, w, c = img.shape
     if grayscale_out and c != 3:
         raise ValueError("grayscale_out needs 3 channels")
     taps, p, k1, f1, k2, f2 = _params(h, w, radius, angle_deg, img.device)
-    if h < p + 2 or w < p + 2:
-        raise NotImplementedError(
-            "images smaller than the blur window + 2 take the XLA blur in the "
-            "JAX package, not yet ported (ROADMAP A.6)"
-        )
+    if radius > 0 and (h < p + 2 or w < p + 2):
+        return fused_blur_rotate_image(gaussian_blur(img, radius), 0.0, angle_deg, fill=fill,
+                                       grayscale_out=grayscale_out, stream=stream)
     x = img.contiguous()
     if stream and grayscale_out and (angle_deg != 0.0 or radius > 0):
         return luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill,
@@ -365,7 +367,8 @@ def fused_blur_rotate_batched(
     (``_traced_params``): <= 1 LSB from the static path's host-f64 shifts.
     ``angles_deg`` is a scalar or one angle an image. A max |angle| beyond
     ``max_angle_deg`` raises ValueError (the JAX package's routing budget);
-    the angles are then clipped to it.
+    the angles are then clipped to it. Images smaller than the blur window
+    + 2 are blurred first, as in ``fused_blur_rotate_image``.
     """
     if not isinstance(img, torch.Tensor) or img.ndim != 4 or img.dtype != torch.uint8:
         raise ValueError("expected an NHWC uint8 tensor")
@@ -390,10 +393,9 @@ def fused_blur_rotate_batched(
     radius = float(radius)
     taps, p = _params(h, w, radius, 0.0, img.device)[:2]
     if radius > 0 and (h < p + 2 or w < p + 2):
-        raise NotImplementedError(
-            "images smaller than the blur window + 2 take the XLA blur in the "
-            "JAX package, not yet ported (ROADMAP A.6)"
-        )
+        return fused_blur_rotate_batched(gaussian_blur(img, radius), 0.0, angles_deg, fill=fill,
+                                         grayscale_out=grayscale_out, stream=stream,
+                                         max_angle_deg=max_angle_deg)
     k1, f1, k2, f2, ident = _traced_params(ang, n, h, w, float(max_angle_deg), img.device)
     x = img.contiguous()
     if stream and grayscale_out:

@@ -1,15 +1,24 @@
-"""Gaussian blur with cv2.GaussianBlur semantics (PyTorch).
+"""Stencil ops (PyTorch): Gaussian and motion blur, PIL sharpen.
 
 Host-side constants (``cv2_gaussian_ksize``, ``gaussian_taps``) are computed
 in float64; the fused kernels and their plain versions cast the taps to
 float32 exactly where they multiply.
 
-``gaussian_blur`` (one radius) and ``apply_blur`` (one radius an image) are
-the counterparts of ``imagetransformations_tpu/ops/stencil.py``, which XLA
-compiles (no Pallas kernel): an H pass then a W pass over NHWC f32, taps
-summed left to right (t = 0..K-1), numpy "reflect" (cv2 reflect-101)
-borders, rint at the end. Per-image radii use taps computed in f32 on the
-device and zero-padded to ``MAX_BLUR_KSIZE``, as the JAX package does.
+Counterparts of ``imagetransformations_tpu/ops/stencil.py``, which XLA
+compiles (no Pallas kernel there):
+
+- ``gaussian_blur`` (one radius) and ``apply_blur`` (one radius an image):
+  cv2.GaussianBlur, an H pass then a W pass over NHWC f32, taps summed left
+  to right (t = 0..K-1), numpy "reflect" (cv2 reflect-101) borders, rint at
+  the end. Per-image radii use taps computed in f32 on the device and
+  zero-padded to ``MAX_BLUR_KSIZE``, as the JAX package does. On a CUDA u8
+  batch ``gaussian_blur`` runs the hand-written kernel of
+  ``ops.hopper.blur.blur_separable``, which computes this function in this
+  order (the JAX ``blur_separable`` is the Pallas form of it); elsewhere,
+  and for f32 input, its plain PyTorch form ``gaussian_blur_plain``.
+- ``motion_blur``: horizontal 1 x k mean (cv2.filter2D, reflect-101).
+- ``sharpen``: PIL ImageEnhance.Sharpness, the SMOOTH 3x3 filter with its
+  exact integer sum and one division by 13, then a trunc blend.
 """
 
 from __future__ import annotations
@@ -70,8 +79,10 @@ def _conv1d(x: torch.Tensor, taps: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
-def gaussian_blur(img: torch.Tensor, radius: float) -> torch.Tensor:
-    """cv2.GaussianBlur semantics with one radius for the batch."""
+def gaussian_blur_plain(img: torch.Tensor, radius: float) -> torch.Tensor:
+    """cv2.GaussianBlur with one radius for the batch, in plain PyTorch on
+    the tensor's device (the plain version of the ``blur_separable``
+    kernel for u8 input)."""
     if radius == 0:
         return img
     x, single = as_batch(img)
@@ -79,6 +90,20 @@ def gaussian_blur(img: torch.Tensor, radius: float) -> torch.Tensor:
     taps = torch.from_numpy(gaussian_taps(k, float(radius)).astype(np.float32)).to(x.device)
     out = _conv1d(_conv1d(as_float(x), taps, 1), taps, 2)
     return restore_layout(finalize(out, img.dtype, "rint"), single)
+
+
+def gaussian_blur(img: torch.Tensor, radius: float) -> torch.Tensor:
+    """cv2.GaussianBlur semantics with one radius for the batch: the
+    ``blur_separable`` kernel for a CUDA u8 batch, else the plain version."""
+    if radius == 0:
+        return img
+    if img.device.type == "cuda" and img.dtype == torch.uint8:
+        # imported here: ops.hopper.blur imports this module at its top
+        from imagetransformations_tpu_torch.ops.hopper.blur import blur_separable
+
+        x, single = as_batch(img)
+        return restore_layout(blur_separable(x, float(radius)), single)
+    return gaussian_blur_plain(img, radius)
 
 
 def blur_taps_batched(radii, max_ksize: int = MAX_BLUR_KSIZE) -> torch.Tensor:
@@ -123,3 +148,48 @@ def _blur_batched(img: torch.Tensor, radii) -> torch.Tensor:
     taps = blur_taps_batched(torch.as_tensor(radii, dtype=torch.float32, device=x.device))
     out = _conv1d(_conv1d(as_float(x), taps, 1), taps, 2)
     return restore_layout(finalize(out, img.dtype, "rint"), single)
+
+
+def motion_blur(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Horizontal 1 x k mean filter (cv2.filter2D, reflect-101), rint for u8."""
+    x, single = as_batch(img)
+    k = int(ksize)
+    taps = torch.full((k,), 1.0 / k, dtype=torch.float32, device=x.device)
+    out = _conv1d(as_float(x), taps, 2)
+    return restore_layout(finalize(out, img.dtype, "rint"), single)
+
+
+def _smooth3x3(x: torch.Tensor) -> torch.Tensor:
+    """PIL SMOOTH 3x3 filter, zero padding, the 1-pixel border copied from
+    the input. The integer kernel sum is accumulated exactly in f32 (at
+    most 13*255) and divided by 13 once: floor(acc / 13 + 0.5)."""
+    h, w = x.shape[1], x.shape[2]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    weights = (1.0, 1.0, 1.0, 1.0, 5.0, 1.0, 1.0, 1.0, 1.0)
+    acc = None
+    for idx in range(9):
+        dy, dx = divmod(idx, 3)
+        term = xp[:, dy : dy + h, dx : dx + w, :] * weights[idx]
+        acc = term if acc is None else acc + term
+    sm = torch.floor(acc / 13.0 + 0.5)
+    hy = torch.arange(h, device=x.device).view(1, h, 1, 1)
+    wx = torch.arange(w, device=x.device).view(1, 1, w, 1)
+    border = (hy == 0) | (hy == h - 1) | (wx == 0) | (wx == w - 1)
+    return torch.where(border, x, sm)
+
+
+def sharpen(img: torch.Tensor, factor) -> torch.Tensor:
+    """PIL ImageEnhance.Sharpness(factor): ``sm + (x - sm) * f`` with sm the
+    SMOOTH filter, every op rounded on its own (as PIL does), then clip and
+    trunc for u8 (cifar_image_transformations.py:93-99). ``factor`` is a
+    scalar or one value an image."""
+    x, single = as_batch(img)
+    xf = torch.clamp(torch.trunc(as_float(x)), 0.0, 255.0)
+    sm = _smooth3x3(xf)
+    f = torch.as_tensor(factor, dtype=torch.float32, device=x.device)
+    if f.ndim == 0:
+        f = f.expand(x.shape[0])
+    out = sm + (xf - sm) * f.reshape(-1, 1, 1, 1)
+    if img.dtype == torch.uint8:
+        out = torch.clamp(torch.trunc(out), 0.0, 255.0).to(torch.uint8)
+    return restore_layout(out, single)

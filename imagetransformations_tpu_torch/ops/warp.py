@@ -1,5 +1,6 @@
 """Geometric warps (PyTorch): affine matrices, the inverse-map affine warp,
-the reference's rotation, shear and zoom ops, and the exact LANCZOS scale.
+the reference's rotation, shear, zoom, translation and flip ops, and the
+exact LANCZOS scale.
 
 Counterpart of ``imagetransformations_tpu/ops/warp.py``. ``affine_warp``
 is a plain PyTorch gather with PIL's sampling conventions (XLA code in the
@@ -9,8 +10,8 @@ route u8 batches in the kernels' range to the hand-written CUDA kernels
 package routes them to its Pallas kernels. Every op runs on the image
 tensor's device.
 
-The LANCZOS scale (``apply_scale_batched``, XLA einsums in the JAX
-package) is the reference's apply_scale (LANCZOS resize, then centre crop
+The LANCZOS scale (``apply_scale_batched`` and, with one factor,
+``apply_scale``; XLA einsums in the JAX package) is the reference's apply_scale (LANCZOS resize, then centre crop
 up or black pad down back to the canvas, transformation.py:173-196) as two
 fixed-point matrix products an image. PIL accumulates pixel * 22-bit
 coefficient with a pre-added half, shifts by 22, clips, and quantizes to u8
@@ -256,6 +257,45 @@ def random_zoom(img: torch.Tensor, factor) -> torch.Tensor:
         return restore_layout(out, single)
     m = zoom_matrix(factor, w, h, device=x.device)
     return restore_layout(affine_warp(x, m, method="bilinear", fill=0.0), single)
+
+
+def apply_translation(img: torch.Tensor, tx, ty=None) -> torch.Tensor:
+    """Reference apply_translation: integer shift, black fill. Python-number
+    shifts are a zero canvas and one slice copy, fractional shifts
+    truncated toward zero like the reference's ``int(tx)``
+    (transformation.py:288-289); anything else (one shift an image) takes
+    the NEAREST warp of ``translation_matrix``."""
+    if ty is None:
+        ty = tx
+    x, single = as_batch(img)
+    if isinstance(tx, (int, float)) and isinstance(ty, (int, float)):
+        sx, sy = int(tx), int(ty)
+        h, w = x.shape[1], x.shape[2]
+        hh, ww = h - abs(sy), w - abs(sx)
+        out = torch.zeros_like(x)
+        if hh > 0 and ww > 0:
+            dy0, sy0 = max(sy, 0), max(-sy, 0)
+            dx0, sx0 = max(sx, 0), max(-sx, 0)
+            out[:, dy0 : dy0 + hh, dx0 : dx0 + ww] = x[:, sy0 : sy0 + hh, sx0 : sx0 + ww]
+        return restore_layout(out, single)
+    m = translation_matrix(tx, ty, device=x.device)
+    return restore_layout(affine_warp(x, m, method="nearest", fill=0.0), single)
+
+
+def flip_vertical(img: torch.Tensor) -> torch.Tensor:
+    """Vertical flip (fall_2025/transformations_code:39)."""
+    x, single = as_batch(img)
+    return restore_layout(torch.flip(x, dims=(1,)), single)
+
+
+def apply_scale(img: torch.Tensor, scale_factor: float) -> torch.Tensor:
+    """Reference apply_scale: LANCZOS resize, then centre crop (up) or black
+    pad (down) back to the canvas (transformation.py:173-196). The exact
+    ``apply_scale_batched`` with the one factor as its grid: the JAX package
+    documents the two as bit-exact."""
+    x, single = as_batch(img)
+    f = float(scale_factor)
+    return restore_layout(apply_scale_batched(x, [f] * x.shape[0], grid=(f,)), single)
 
 
 # ---------------------------------------------------------------- PIL filters

@@ -149,9 +149,12 @@ def test_budget_and_unported_inputs_raise(rng):
         mk.fused_blur_rotate_batched(imgs, 1.5, np.zeros(3, np.float32))  # 3 angles, 2 images
     with pytest.raises(ValueError):
         mk.fused_blur_rotate_batched(imgs[..., :1], 1.5, 5.0, grayscale_out=True)
-    tiny = torch.from_numpy(rng.integers(0, 256, (2, 5, 48, 3), dtype=np.uint8))
-    with pytest.raises(NotImplementedError, match="A.6"):
-        mk.fused_blur_rotate_batched(tiny, 1.5, 5.0)
+    # images smaller than the blur window + 2: gaussian_blur, then radius 0, as in JAX
+    tiny = rng.integers(0, 256, (2, 5, 48, 3), dtype=np.uint8)
+    angles = np.asarray([5.0, -7.0], np.float32)
+    out = mk.fused_blur_rotate_batched(torch.from_numpy(tiny), 1.5, angles).numpy()
+    want = np.asarray(jmk.fused_blur_rotate_batched(jnp.asarray(tiny), 1.5, jnp.asarray(angles)))
+    np.testing.assert_array_equal(out, want)
 
 
 def test_cpu_counts_no_launch(rng):
@@ -246,9 +249,12 @@ def test_fast_compile_spec_matches_jax():
 
 def test_fast_compile_falls_back_for_other_inputs(rng):
     """A gray chain on a 1-channel batch is not the kernel's: the normal
-    build takes it (and raises, as the port has no separate grayscale op)."""
+    build takes it, whose grayscale op raises on one channel, as the JAX
+    chain raises there; float32 input takes the normal build too."""
     ops = [OpSpec("blur", {"radius": 1.5}), OpSpec("rotation", {"angle": 15.0}),
            OpSpec("grayscale")]
     fc = build_chain_fn(ops, fast_compile=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(IndexError):
         fc(rng.integers(0, 256, (1, 40, 36, 1), dtype=np.uint8))
+    floats = rng.random((1, 40, 36, 3), dtype=np.float32) * 255
+    assert torch.equal(fc(floats), build_chain_fn(ops, device="cpu")(floats))

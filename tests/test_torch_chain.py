@@ -2,10 +2,12 @@
 
 Both take the same numpy batch and the same chain (op name + params); the
 port runs on the CPU (device="cpu": the kernels' plain versions), the JAX
-package on its CPU backend (Pallas in interpret mode). Every chain here
-routes entirely through the fused kernels in both packages. Budget against
-JAX: <= 1 LSB on <= 0.1% of pixels (XLA-CPU FMA contraction); against the
-numpy stream oracle: 0 LSB.
+package on its CPU backend (Pallas in interpret mode). The chains of
+CHAINS route entirely through the fused kernels in both packages. Budget
+against JAX: <= 1 LSB on <= 0.1% of pixels (XLA-CPU FMA contraction);
+against the numpy stream oracle: 0 LSB. The chains and inputs the port
+refused before the rest of the dispatcher was ported are held against JAX
+too (tests/test_torch_chain_full.py covers every route).
 """
 
 import numpy as np
@@ -92,21 +94,39 @@ def test_chain_accepts_tensor_and_empty_chain(rng):
         ([("grayscale", {})], {}, "A.6"),
     ],
 )
-def test_unported_chains_raise(ops, kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tchain.build_chain_fn(_ops(tchain, ops), device="cpu", **kwargs)
+def test_unported_chains_raise(rng, ops, kwargs, item):
+    """The chains the port refused until ROADMAP ``item`` was ported now
+    run, and match the JAX chain: <= 1 LSB on <= 0.1% of values (the
+    affine warp's rotation matrix: f32 cos / sin an ulp apart between XLA
+    and PyTorch at 60 degrees; measured 0.05%)."""
+    imgs = rng.integers(0, 256, (2, 40, 48, 3), dtype=np.uint8)
+    out = tchain.build_chain_fn(_ops(tchain, ops), device="cpu", **kwargs)(imgs).numpy()
+    want = np.asarray(jchain.build_chain_fn(_ops(jchain, ops), **kwargs)(jnp.asarray(imgs)))
+    err = np.abs(out.astype(int) - want.astype(int))
+    assert err.max() <= 1 and (err > 0).mean() <= 0.001, (item, err.max(), (err > 0).mean())
 
 
 def test_unported_inputs_raise_at_call(rng):
-    gray_chain = [tchain.OpSpec("blur", {"radius": 1.5}), tchain.OpSpec("grayscale")]
-    fn = tchain.build_chain_fn(gray_chain, device="cpu")
+    """HWC and float32 inputs run op by op, as in JAX; grayscale of one
+    channel raises in both packages."""
+    gray_chain = [("blur", {"radius": 1.5}), ("grayscale", {})]
+    fn = tchain.build_chain_fn(_ops(tchain, gray_chain), device="cpu")
+    jfn = jchain.build_chain_fn(_ops(jchain, gray_chain))
     one_channel = rng.integers(0, 256, (1, 40, 36, 1), dtype=np.uint8)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        fn(one_channel)  # grayscale of 1 channel is a separate op in JAX
-    with pytest.raises(NotImplementedError, match="A.6"):
-        fn(rng.integers(0, 256, (40, 36, 3), dtype=np.uint8))  # HWC
-    with pytest.raises(NotImplementedError, match="A.6"):
-        fn(rng.random((1, 40, 36, 3), dtype=np.float32))
+    with pytest.raises(IndexError):
+        fn(one_channel)
+    with pytest.raises(TypeError):
+        jfn(jnp.asarray(one_channel))
+    hwc = rng.integers(0, 256, (40, 36, 3), dtype=np.uint8)
+    with pytest.raises(ValueError):
+        jfn(jnp.asarray(hwc))  # the JAX chain's HWC blur unpacks four dims
+    want = tchain.build_chain_fn(_ops(tchain, gray_chain), strict_parity=True,
+                                 device="cpu")(hwc[None])[0]
+    assert torch.equal(fn(hwc), want)  # the u8 blur, then grayscale
+    floats = rng.random((1, 40, 36, 3), dtype=np.float32) * 255
+    out = fn(floats)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(jfn(jnp.asarray(floats))), atol=2e-3)
 
 
 def test_default_device_is_cuda_and_never_cpu(monkeypatch):

@@ -2,8 +2,10 @@
 
 The blur-rotate kernels with one angle for the batch and one an image, the
 BICUBIC shear, the row-shift shear, the bilinear zoom, the PIL NEAREST
-rotation, and the apply_all sweep (every flag combination) on the card
-against its CPU route.
+rotation, the separable Gaussian blur, the row shifts of ``shear_rows`` and
+``shear_rows_per_image`` and the 3-shear rotations built on them, the apply_all
+sweep (every flag combination) and ``build_chain_fn`` (every route) on the
+card against their CPU routes.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one (the decision is made inside the fixture). The file
@@ -19,10 +21,12 @@ import pytest
 import torch
 
 from imagetransformations_tpu_torch import OpSpec, apply_all_transformations, build_chain_fn
+from imagetransformations_tpu_torch.ops.hopper import blur as bl
 from imagetransformations_tpu_torch.ops.hopper import megakernel as mk
 from imagetransformations_tpu_torch.ops.hopper import resample as rs
 from imagetransformations_tpu_torch.ops.hopper import rotate_gather as rg
 from imagetransformations_tpu_torch.ops.hopper import shear as sh
+from imagetransformations_tpu_torch.ops import stencil as st
 from imagetransformations_tpu_torch.ops import warp as wp
 from imagetransformations_tpu_torch.pipeline import batch
 from imagetransformations_tpu_torch.pipeline.batch import TYPES
@@ -162,7 +166,7 @@ def test_shear_rows_equals_plain(rng, cuda, shape):
     torch.cuda.synchronize()
     assert mk.LAUNCHES["shear_rows_logrouted"] == before + 1
     b_px = min(bound + 1, w + 2)
-    assert torch.equal(out, sh.shear_rows_logrouted_plain(x, shifts, 255, b_px))
+    assert torch.equal(out, sh.shear_rows_plain(x, shifts, 255, b_px))
     assert torch.equal(out.cpu(), sh.shear_rows_logrouted(x.cpu(), shifts.cpu(), fill=255,
                                                           max_shift_px=bound))
 
@@ -208,6 +212,130 @@ def test_warp_ops_route_to_the_kernels_on_the_card(rng, cuda):
     assert torch.equal(zoom, wp.affine_warp(x, wp.zoom_matrix(1.2, 45, 40), method="bilinear"))
     m = wp.rotation_matrix(12.5, 45, 40, device=cuda)
     assert torch.equal(rot, wp.affine_warp(x, m, method="nearest"))
+
+
+# ---------------------------------------------------------------- separable blur
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 40, 3), (4, 5, 7, 3), (3, 33, 70, 1),
+                                   (2, 17, 300, 4), (1, 1, 9, 3)])
+@pytest.mark.parametrize("radius", [0.5, 1.5, 5.0])
+def test_blur_separable_equals_plain(rng, cuda, shape, radius):
+    """Any shape (w*c not a multiple of 128, images narrower than the
+    window, one row), any channel count."""
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    before = mk.LAUNCHES["blur_separable"]
+    out = bl.blur_separable(x, radius)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["blur_separable"] == before + 1
+    assert torch.equal(out, st.gaussian_blur_plain(x, radius))
+    assert torch.equal(out.cpu(), bl.blur_separable(x.cpu(), radius))
+    assert torch.equal(st.gaussian_blur(x, radius), out)  # u8 on the card: the kernel
+
+
+def test_blur_separable_wide_window_and_sheared_rows(rng, cuda):
+    x = torch.from_numpy(rng.integers(0, 256, (2, 40, 45, 3), dtype=np.uint8)).to(cuda)
+    assert torch.equal(bl.blur_separable(x, 12.0), st.gaussian_blur_plain(x, 12.0))  # 73 taps
+    out = bl.blur_to_sheared_rows(x, 1.5, 9, 200, 7)
+    assert torch.equal(out.cpu(), bl.blur_to_sheared_rows(x.cpu(), 1.5, 9, 200, 7))
+
+
+# ---------------------------------------------------------------- row shifts, 3-shear
+
+
+@pytest.mark.parametrize("shape", NEW_KERNEL_SHAPES)
+def test_shear_rows_shared_and_gray_equal_plain(rng, cuda, shape):
+    """One shift vector for the batch, within and beyond an explicit
+    pad_px (saturation), with and without the grayscale post-op."""
+    n, h, w, c = shape
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    shifts = ((rng.random(h) - 0.5) * 30.0).astype(np.float32)
+    for pad_px, postop in ((None, None), (6, None), (None, "grayscale"), (6, "grayscale")):
+        if postop and c != 3:
+            continue
+        before = mk.LAUNCHES["shear_rows"]
+        out = sh.shear_rows(x, shifts, fill=9, pad_px=pad_px, postop=postop)
+        torch.cuda.synchronize()
+        assert mk.LAUNCHES["shear_rows"] == before + 1
+        want = sh.shear_rows(x.cpu(), shifts, fill=9, pad_px=pad_px, postop=postop)
+        assert torch.equal(out.cpu(), want), (pad_px, postop)
+
+
+@pytest.mark.parametrize("shape", NEW_KERNEL_SHAPES)
+def test_shear_rows_per_image_equals_plain(rng, cuda, shape):
+    n, h, w, c = shape
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    shifts = ((rng.random((n, h)) - 0.5) * 30.0).astype(np.float32)
+    for pad_px in (None, 4):
+        before = mk.LAUNCHES["shear_rows_per_image"]
+        out = sh.shear_rows_per_image(x, shifts, fill=3, pad_px=pad_px)
+        torch.cuda.synchronize()
+        assert mk.LAUNCHES["shear_rows_per_image"] == before + 1
+        b_px = max(pad_px or int(np.ceil(np.abs(shifts).max())) + 1, 1)
+        assert torch.equal(out, sh.shear_rows_plain(x, torch.from_numpy(shifts).to(cuda), 3,
+                                                    b_px))
+
+
+@pytest.mark.parametrize("angle,gray", [(15.0, False), (-44.0, True), (70.0, False)])
+def test_rotate_3shear_and_blur_rotate_fused_equal_plain(rng, cuda, angle, gray):
+    x = torch.from_numpy(rng.integers(0, 256, (3, 40, 45, 3), dtype=np.uint8)).to(cuda)
+    before = dict(mk.LAUNCHES)
+    out = sh.rotate_3shear(x, angle, fill=5, grayscale_out=gray)
+    fused = sh.blur_rotate_fused(x, 1.5, angle, fill=5, grayscale_out=gray)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["shear_rows"] == before["shear_rows"] + 6
+    assert mk.LAUNCHES["blur_separable"] == before["blur_separable"] + 1
+    assert torch.equal(out.cpu(), sh.rotate_3shear(x.cpu(), angle, fill=5, grayscale_out=gray))
+    assert torch.equal(fused.cpu(), sh.blur_rotate_fused(x.cpu(), 1.5, angle, fill=5,
+                                                         grayscale_out=gray))
+
+
+@pytest.mark.parametrize("shape,radius,angle,gray,stream", [
+    ((2, 40, 36), 1.5, 60.0, True, True),
+    ((2, 40, 36), 0.0, -80.0, False, False),
+    ((2, 5, 7), 1.5, 15.0, True, True),    # smaller than the window: blurred first
+    ((2, 5, 7), 1.5, 0.0, False, False),
+])
+def test_fused_beyond_45_and_tiny_images_equal_plain(rng, cuda, shape, radius, angle, gray,
+                                                     stream):
+    imgs = rng.integers(0, 256, (*shape, 3), dtype=np.uint8)
+    got = _run(imgs, cuda, radius, angle, gray, stream, 0)
+    assert torch.equal(got, _run(imgs, "cpu", radius, angle, gray, stream, 0))
+
+
+CHAIN_CASES = {
+    "strict blur>rotate>gray": ([("blur", {"radius": 1.5}), ("rotation", {"angle": 15.0}),
+                                 ("grayscale", {})], {"strict_parity": True}),
+    "rotation 60": ([("rotation", {"angle": 60.0})], {}),
+    "affine run": ([("translation", {"tx": 3, "ty": -2}), ("zoom", {"factor": 1.2}),
+                    ("rotation", {"angle": 10.0})], {}),
+    "photometric": ([("brightness", {"factor": 0.05}), ("contrast", {"alpha": 1.2}),
+                     ("sharpness", {"factor": 1.5}), ("histogram_equalization", {}),
+                     ("invert", {})], {}),
+    "simple ops": ([("enhance_contrast", {"factor": 1.3}), ("enhance_color", {"factor": 0.6}),
+                    ("motion_blur", {"ksize": 5}), ("scale", {"factor": 1.1}),
+                    ("shear", {"factor": 0.2}), ("flip_vertical", {}),
+                    ("translation", {"tx": 2.7}), ("zoom", {"factor": 1.3})], {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHAIN_CASES))
+def test_chain_routes_on_the_card_equal_the_cpu(rng, cuda, name):
+    """Every route of build_chain_fn on the card equals the CPU route. The
+    rotation matrices are computed on each device (cos and sin may differ by
+    an ulp between them), so the affine-warp routes are held to <= 1 LSB on
+    <= 1% of values; the others to 0."""
+    ops, kwargs = CHAIN_CASES[name]
+    imgs = rng.integers(0, 256, (2, 40, 48, 3), dtype=np.uint8)
+    chain = [OpSpec(n, dict(p)) for n, p in ops]
+    out = build_chain_fn(chain, **kwargs)(imgs)
+    assert out.device.type == "cuda"
+    want = build_chain_fn(chain, device="cpu", **kwargs)(imgs)
+    err = (out.cpu().to(torch.int16) - want.to(torch.int16)).abs()
+    if name in ("rotation 60", "affine run"):
+        assert int(err.max()) <= 1 and float((err > 0).float().mean()) <= 0.01
+    else:
+        assert int(err.max()) == 0
 
 
 # ---------------------------------------------------------------- the sweep

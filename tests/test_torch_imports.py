@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "imagetransformations_tpu")
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "profile_torch_port.py"]
+                                         ROOT / "tools" / "profile_torch_port.py",
+                                         ROOT / "tools" / "time_blur.py"]
 
 
 def _imported(tree):
@@ -43,6 +44,11 @@ def test_port_files_found():
     assert "imagetransformations_tpu_torch/ops/hopper/resample.py" in names
     assert "imagetransformations_tpu_torch/ops/hopper/rotate_gather.py" in names
     assert "imagetransformations_tpu_torch/ops/warp.py" in names
+    assert "imagetransformations_tpu_torch/ops/hopper/blur.py" in names
+    assert "imagetransformations_tpu_torch/ops/hopper/shear.py" in names
+    assert "imagetransformations_tpu_torch/ops/histogram.py" in names
+    assert "imagetransformations_tpu_torch/ops/elementwise.py" in names
+    assert "imagetransformations_tpu_torch/ops/noise.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -84,6 +90,17 @@ assert sorted(res) == sorted(port.PARAM_GRIDS)
 import torch
 t = torch.from_numpy(x)
 assert port.apply_rotation(t, 60.0).shape == t.shape and port.random_zoom(t, 0.3).shape == t.shape
+from imagetransformations_tpu_torch.ops.hopper import blur
+from imagetransformations_tpu_torch.ops import histogram, noise
+assert port.blur_separable(t, 1.5).shape == t.shape
+assert port.shear_rows(t, np.zeros(40, np.float32), postop="grayscale").shape == t.shape
+assert port.shear_rows_per_image(t, np.zeros((1, 40), np.float32)).shape == t.shape
+assert port.rotate_3shear(t, 70.0).shape == port.blur_rotate_fused(t, 1.5, 10.0).shape == t.shape
+ops = [port.OpSpec(n, p) for n, p in (("blur", {"radius": 1.5}), ("rotation", {"angle": 60.0}),
+       ("histogram_equalization", {}), ("shot_noise", {"lam": 10.0}), ("scale", {"factor": 1.1}))]
+g = torch.Generator().manual_seed(0)
+for strict in (False, True):
+    assert port.build_chain_fn(ops, strict_parity=strict, device="cpu")(x, g).shape == x.shape
 print("ok")
 """
     env = dict(os.environ)

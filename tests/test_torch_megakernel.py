@@ -215,13 +215,23 @@ def test_wrappers_raise_off_cpu_and_cuda(rng):
 
 
 def test_unported_inputs_raise(rng):
-    imgs = torch.from_numpy(rng.integers(0, 256, (1, 64, 48, 3), dtype=np.uint8))
-    with pytest.raises(NotImplementedError, match="A.6"):
-        mk.fused_blur_rotate_image(imgs, 1.5, 50.0)
-    tiny = torch.from_numpy(rng.integers(0, 256, (1, 5, 48, 3), dtype=np.uint8))
-    with pytest.raises(NotImplementedError, match="A.6"):
-        mk.fused_blur_rotate_image(tiny, 1.5, 15.0)  # 9 taps need h >= 6
+    """|angle| > 45 and images smaller than the blur window + 2 now run as
+    the JAX function runs them (pads from the shifts; gaussian_blur, then
+    the radius-0 kernel); float and 1-channel gray inputs still raise."""
+    imgs = rng.integers(0, 256, (1, 64, 48, 3), dtype=np.uint8)
+    for a in (50.0, -80.0):
+        np.testing.assert_array_equal(_port(imgs, 1.5, a, True, True),
+                                      _jax(imgs, 1.5, a, True, True))
+        np.testing.assert_array_equal(_port(imgs, 0.0, a, False, False),
+                                      ofw.rotate_3shear(imgs, a))
+    tiny = rng.integers(0, 256, (1, 5, 48, 3), dtype=np.uint8)  # 9 taps need h >= 6
+    np.testing.assert_array_equal(_port(tiny, 1.5, 15.0, True, True),
+                                  _jax(tiny, 1.5, 15.0, True, True))
+    blurred = np.stack([ost.gaussian_blur(im, 1.5) for im in tiny])
+    np.testing.assert_array_equal(_port(tiny, 1.5, 15.0, False, False),
+                                  _per_op_oracle(blurred, 0.0, 15.0, False))
+    t = torch.from_numpy(imgs)
     with pytest.raises(ValueError):
-        mk.fused_blur_rotate_image(imgs.float(), 1.5, 15.0)
+        mk.fused_blur_rotate_image(t.float(), 1.5, 15.0)
     with pytest.raises(ValueError):
-        mk.fused_blur_rotate_image(imgs[..., :1], 1.5, 15.0, grayscale_out=True)
+        mk.fused_blur_rotate_image(t[..., :1], 1.5, 15.0, grayscale_out=True)

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""How far the PyTorch port's warps sit from the JAX package, on the CPU.
+"""How far the PyTorch port sits from the JAX package, on the CPU.
 
     JAX_PLATFORMS=cpu python3 tools/port_parity_report.py
 
-Prints one JSON line per gate of the port's warp and fast-sweep tests
-(tests/test_torch_warp.py, tests/test_torch_apply_all_fast.py), on the same
-inputs: the largest difference in LSB and the share of values (or, for
-NEAREST rotation, of pixels) that differ, against the JAX function (Pallas
-in interpret mode) and the numpy oracle. The tests assert the budgets;
-this prints the measured values. Runs in about a minute.
+Prints one JSON line per gate of the port's warp, fast-sweep, blur, row
+shift, op and chain tests (tests/test_torch_warp.py,
+tests/test_torch_apply_all_fast.py, tests/test_torch_blur.py,
+tests/test_torch_shear.py, tests/test_torch_ops.py,
+tests/test_torch_chain_full.py), on the same inputs: the largest difference
+in LSB and the share of values (or, for NEAREST rotation, of pixels) that
+differ, against the JAX function (Pallas in interpret mode) and the numpy
+oracle. The tests assert the budgets; this prints the measured values. Runs
+in about two minutes.
 """
 
 from __future__ import annotations
@@ -31,6 +34,14 @@ from imagetransformations_tpu.ops import warp as jwp  # noqa: E402
 from imagetransformations_tpu.ops.pallas import resample as jrs  # noqa: E402
 from imagetransformations_tpu.ops.pallas import rotate_gather as jrg  # noqa: E402
 from imagetransformations_tpu.pipeline import batch as jbatch  # noqa: E402
+from imagetransformations_tpu.pipeline import chain as jchain  # noqa: E402
+from imagetransformations_tpu import ops as jops  # noqa: E402
+from imagetransformations_tpu.oracle import elementwise as oe  # noqa: E402
+from imagetransformations_tpu.oracle import fast_warp as ofw  # noqa: E402
+from imagetransformations_tpu.oracle import stencil as ost  # noqa: E402
+from imagetransformations_tpu.ops import stencil as jst  # noqa: E402
+from imagetransformations_tpu.ops.pallas import blur as jblur  # noqa: E402
+from imagetransformations_tpu.ops.pallas import shear as jshear  # noqa: E402
 
 import imagetransformations_tpu_torch as port  # noqa: E402
 from imagetransformations_tpu_torch.ops import warp as twp  # noqa: E402
@@ -39,6 +50,11 @@ from imagetransformations_tpu_torch.ops.hopper.rotate_gather import (  # noqa: E
     pil_rotate_nearest_batched,
 )
 from imagetransformations_tpu_torch.pipeline import batch as tbatch  # noqa: E402
+from imagetransformations_tpu_torch.pipeline import chain as tchain  # noqa: E402
+from imagetransformations_tpu_torch.ops import elementwise as tew  # noqa: E402
+from imagetransformations_tpu_torch.ops import stencil as tst  # noqa: E402
+from imagetransformations_tpu_torch.ops.hopper import blur as tblur  # noqa: E402
+from imagetransformations_tpu_torch.ops.hopper import shear as tshear  # noqa: E402
 
 ZOOM_FACTORS = np.asarray([*PARAM_GRIDS["scale"].values(), 0.85, 1.45], np.float32)
 
@@ -154,7 +170,91 @@ def main() -> int:
             ref = np.stack([oracle(im, m.astype(np.float64)) for im in imgs])
             emit(f"affine_warp {method} {name}", imgs.shape, "jax", **values(out, want))
             emit(f"affine_warp {method} {name}", imgs.shape, "f64 oracle", **values(out, ref))
+    blur_and_shears()
+    ops_and_chains()
     return 0
+
+
+def blur_and_shears() -> None:
+    """Kernels #6-#8 and the 3-shear rotations (tests/test_torch_blur.py,
+    tests/test_torch_shear.py)."""
+    for shape in ((2, 48, 40, 3), (2, 40, 48, 3), (2, 64, 128, 3)):
+        x = np.random.default_rng(1234).integers(0, 256, shape, dtype=np.uint8)
+        for r in (0.5, 1.5, 5.0):
+            out = tblur.blur_separable(torch.from_numpy(x), r).numpy()
+            want = np.asarray(jblur.blur_separable(jnp.asarray(x), r))
+            ref = np.stack([ost.gaussian_blur(im, r) for im in x])
+            emit(f"blur_separable r {r}", shape, "jax kernel", **values(out, want))
+            emit(f"blur_separable r {r}", shape, "f64 oracle", **values(out, ref))
+    rng = np.random.default_rng(1234)
+    x = rng.integers(0, 256, (2, 48, 40, 3), dtype=np.uint8)
+    s = (rng.random(48).astype(np.float32) - 0.5) * 20.0
+    for post in (None, "grayscale"):
+        out = tshear.shear_rows(torch.from_numpy(x), s, postop=post).numpy()
+        emit(f"shear_rows postop={post}", x.shape, "jax kernel",
+             **values(out, jshear.shear_rows(jnp.asarray(x), s, postop=post)))
+    emit("shear_rows", x.shape, "fast_warp.shear_rows",
+         **values(tshear.shear_rows(torch.from_numpy(x), s).numpy(), ofw.shear_rows(x, s)))
+    s2 = ((rng.random((2, 48)) - 0.5) * 20.0).astype(np.float32)
+    for pad in (None, 3):
+        out = tshear.shear_rows_per_image(torch.from_numpy(x), s2, pad_px=pad).numpy()
+        emit(f"shear_rows_per_image pad_px={pad}", x.shape, "jax kernel",
+             **values(out, jshear.shear_rows_per_image(jnp.asarray(x), s2, pad_px=pad)))
+    for a in (0.0, 15.0, -44.0, 60.0, -80.0):
+        out = tshear.rotate_3shear(torch.from_numpy(x), a).numpy()
+        emit(f"rotate_3shear {a}", x.shape, "jax kernel",
+             **values(out, jshear.rotate_3shear(jnp.asarray(x), a)))
+        emit(f"rotate_3shear {a}", x.shape, "fast_warp.rotate_3shear",
+             **values(out, ofw.rotate_3shear(x, a)))
+    img = rng.integers(0, 256, (2, 64, 128, 3), dtype=np.uint8)
+    out = tshear.blur_rotate_fused(torch.from_numpy(img), 1.5, 15.0, grayscale_out=True).numpy()
+    emit("blur_rotate_fused r 1.5 15 gray", img.shape, "jax kernel",
+         **values(out, jshear.blur_rotate_fused(jnp.asarray(img), 1.5, 15.0,
+                                                grayscale_out=True)))
+    blurred = np.stack([ost.gaussian_blur(im, 1.5) for im in img])
+    emit("blur_rotate_fused r 1.5 15 gray", img.shape, "f64 blur oracle -> fast_warp -> L24",
+         **values(out, np.stack([oe.grayscale_rgb(im) for im in ofw.rotate_3shear(blurred, 15.0)])))
+
+
+def ops_and_chains() -> None:
+    """The FMA-budgeted ops and the chain routes that differ from JAX
+    (tests/test_torch_ops.py, tests/test_torch_chain_full.py)."""
+    imgs = np.random.default_rng(1234).integers(0, 256, (2, 40, 48, 3), dtype=np.uint8)
+    x, t = jnp.asarray(imgs), torch.from_numpy(imgs)
+    for name, port, jax_fn in (
+        ("enhance_contrast 1.3", lambda: tew.enhance_contrast(t, 1.3),
+         lambda: jops.enhance_contrast(x, 1.3)),
+        ("enhance_color 0.6", lambda: tew.enhance_color(t, 0.6),
+         lambda: jops.enhance_color(x, 0.6)),
+        ("sharpen 1.5", lambda: tst.sharpen(t, 1.5), lambda: jst.sharpen(x, 1.5)),
+        ("sharpen 0.3", lambda: tst.sharpen(t, 0.3), lambda: jst.sharpen(x, 0.3)),
+    ):
+        emit(name, imgs.shape, "jax (XLA-CPU FMA)", **values(port().numpy(), jax_fn()))
+    chains = {
+        "rotation 60": ([("rotation", {"angle": 60.0})], {}),
+        "rotation [5, -50]": ([("rotation", {"angle": np.asarray([5.0, -50.0], np.float32)})],
+                              {}),
+        "translation>zoom>rotation(10)": ([("translation", {"tx": 3, "ty": -2}),
+                                           ("zoom", {"factor": 1.2}),
+                                           ("rotation", {"angle": 10.0})], {}),
+        "zoom 1.3": ([("zoom", {"factor": 1.3})], {}),
+        "strict blur>rotation(15)>gray": ([("blur", {"radius": 1.5}),
+                                           ("rotation", {"angle": 15.0}), ("grayscale", {})],
+                                          {"strict_parity": True}),
+        "strict zoom>contrast>brightness>rotation(0)": (
+            [("zoom", {"factor": 1.2}), ("contrast", {"alpha": 1.2}),
+             ("brightness", {"factor": 0.05}), ("rotation", {"angle": 0.0})],
+            {"strict_parity": True}),
+        "photometric": ([("brightness", {"factor": 0.05}), ("contrast", {"alpha": 1.2}),
+                         ("sharpness", {"factor": 1.5}), ("histogram_equalization", {}),
+                         ("invert", {})], {}),
+    }
+    for name, (ops, kw) in chains.items():
+        out = tchain.build_chain_fn([tchain.OpSpec(n, dict(p)) for n, p in ops], device="cpu",
+                                    **kw)(imgs).numpy()
+        want = jchain.build_chain_fn([jchain.OpSpec(n, dict(p)) for n, p in ops], **kw)(x)
+        emit(f"build_chain_fn {name}", imgs.shape, "jax build_chain_fn",
+             **values(out, want), **pixels(out, want))
 
 
 if __name__ == "__main__":

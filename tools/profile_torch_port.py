@@ -6,8 +6,10 @@
 For each main-path run of chip_smoke.py (its ``main_path_runs``: the blur ->
 rotate -> grayscale chain at 32x512x512, 128x224x224 and 4096x32x32; the
 non-gray chain and the strict fused call at 512x512; the per-image-angle
-chain at 512x512; the apply_all sweep at 32x512x512 and 4096x32x32), runs
-CALLS calls under
+chain at 512x512; the apply_all sweep at 32x512x512 and 4096x32x32 with
+both flag sets; the strict, rotation-60, affine-run and photometric chains,
+``blur_separable``, ``rotate_3shear``, ``blur_rotate_fused`` and
+``shear_rows_per_image`` at 32x512x512), runs CALLS calls under
 ``torch.profiler`` after a warm-up and prints one JSON line: device time by
 CUDA kernel name (the blur launch and the shear launch of each kernel pair,
 PyTorch's own kernels if any), the wall time of the window, and the device's
