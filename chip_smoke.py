@@ -11,6 +11,7 @@ and per-image angles, in strict mode, with an affine run, a rotation beyond
 ``apply_all_transformations`` sweep with its default flags and with the
 fast scale/shear and PIL rotation; ``blur_separable``, ``rotate_3shear``,
 ``blur_rotate_fused`` and ``shear_rows_per_image``) at the benchmark shapes,
+with the sweep's per-image blur on ``blur_separable_batched``,
 each with the launch counters reset just before it and read just after,
 times each sweep type, and times each kernel beside its bound and, where
 one exists, a PyTorch call that computes the same function or samples the
@@ -45,6 +46,7 @@ SHAPE_512, SHAPE_224, SHAPE_32 = (32, 512, 512), (128, 224, 224), (4096, 32, 32)
 ROTATION_GRID = [-22.5 + 2.5 * i for i in range(19)]
 SHEAR_GRID = [round(0.1 * i, 1) for i in range(11)]
 SCALE_GRID = [0.9, 1.0, 1.1, 1.2, 1.3, 1.4]
+BLUR_GRID = [0.5 * i for i in range(11)]  # radius 0:0.5:5
 ZOOM_BOUNDS = [0.85, 1.45]  # the fast scale's budget: scale grid min/max -+ 0.05
 APPLY_ALL_BUDGET = 23.0  # max |grid angle| + 0.5, as pipeline/batch.py routes it
 PER_IMAGE_PAD = 20  # shear_rows_per_image's pad_px on the main path (shifts to +-30)
@@ -96,6 +98,12 @@ KERNELS = {
         source="imagetransformations_tpu_torch/csrc/blur_separable.cu",
         replaces="imagetransformations_tpu/ops/pallas/blur.py:36",
     ),
+    # apply_all's per-image blur: kernel #6 with a tap row an image (the JAX
+    # package runs it through XLA, ops/stencil.py:109-114)
+    "blur_separable_batched": dict(
+        source="imagetransformations_tpu_torch/csrc/blur_separable.cu",
+        replaces="imagetransformations_tpu/ops/pallas/blur.py:36",
+    ),
     "shear_rows": dict(
         source="imagetransformations_tpu_torch/csrc/shear_rows.cu",
         replaces="imagetransformations_tpu/ops/pallas/shear.py:67",
@@ -118,6 +126,10 @@ LIBRARY_NOTE = ("F.grid_sample(mode={mode}, padding_mode='zeros', align_corners=
 BLUR_LIBRARY_NOTE = ("F.conv2d of the KxK outer product of the taps, groups=3, on the reflect-"
                      "padded f32 NCHW batch (padding outside the timed region), TF32 off: the "
                      "same filter summed in another order, not bit-equal; f32 in and out")
+BLUR_BATCHED_LIBRARY_NOTE = (
+    "F.conv2d of each image's 31x31 outer product of its zero-padded tap row, groups=3n, on "
+    "the reflect-padded f32 batch as one [1, 3n, h+30, w+30] image (padding outside the timed "
+    "region), TF32 off: the same filters summed in another order, not bit-equal; f32 in and out")
 
 
 def emit(obj) -> None:
@@ -185,6 +197,19 @@ def ops_rgb(p: int, strict: bool, gray: bool, identity: bool) -> int:
 def ops_blur(k: int) -> int:
     # per value: cvt, K mul + K-1 add a pass (two passes), rint, clip (2), cvt
     return 1 + 2 * (2 * k - 1) + 4
+
+
+def bound_blur_batched(torch, x, radii):
+    """Per-image blur: each image at radius r > 0 does ops_blur(K) a value
+    with its own K; an image at radius 0 is a copy (no operations). Reads
+    the batch and the [n, 31] f32 tap rows, writes the batch."""
+    from imagetransformations_tpu_torch.ops import stencil as st
+
+    n, h, w, c = x.shape
+    taps = st.blur_taps_batched(radii)
+    k = (taps != 0).sum(1)
+    ops = int(torch.where(radii > 0, 4 * k + 3, 0).sum().item()) * h * w * c
+    return bound_of(2 * x.numel() + taps.numel() * 4, ops)
 
 
 def ops_shear_bicubic(c: int) -> int:
@@ -370,14 +395,16 @@ def main_path_runs():
         ("chain blur>rotate(per-image angles)>gray 512", fn_traced, SHAPE_512, SEED + 20,
          "traced gray 512", 20, ("luma_blur_rotate_traced",)),
         ("apply_all_transformations 512", sweep, SHAPE_512, SEED + 30, "apply_all", 5,
-         ("rgb_blur_rotate_traced", "shear_bicubic")),
+         ("rgb_blur_rotate_traced", "shear_bicubic", "blur_separable_batched")),
         ("apply_all_transformations 32 (cifar)", sweep, SHAPE_32, SEED + 31, "apply_all", 5,
-         ("rgb_blur_rotate_traced", "shear_bicubic")),
+         ("rgb_blur_rotate_traced", "shear_bicubic", "blur_separable_batched")),
         ("apply_all_transformations fast+pil-rotation 512", sweep_fast, SHAPE_512, SEED + 32,
-         "apply_all_fast", 5, ("shear_rows_logrouted", "zoom_bilinear", "pil_rotate_nearest")),
+         "apply_all_fast", 5, ("shear_rows_logrouted", "zoom_bilinear", "pil_rotate_nearest",
+                               "blur_separable_batched")),
         ("apply_all_transformations fast+pil-rotation 32 (cifar)", sweep_fast, SHAPE_32,
          SEED + 33, "apply_all_fast", 5,
-         ("shear_rows_logrouted", "zoom_bilinear", "pil_rotate_nearest")),
+         ("shear_rows_logrouted", "zoom_bilinear", "pil_rotate_nearest",
+          "blur_separable_batched")),
         ("chain strict blur>rotate>gray 512", fn_strict, SHAPE_512, SEED + 40, strict_plain, 10,
          ("blur_separable", "pil_rotate_nearest")),
         ("chain rotation 60 512", fn_rot60, SHAPE_512, SEED + 41, rot60_plain, 5, ()),
@@ -410,9 +437,10 @@ def per_image_row_shifts(torch, n: int, h: int, device):
 
 def check_sweep(torch, x, res, kind: str) -> dict:
     """The 8 types, their shapes and types; the types that kernels carry
-    (rotation and shear; with the fast flags also scale) at 0 LSB against
-    the plain versions on the values the sweep drew; the noise changes the
-    image. Returns the LSB of each checked type."""
+    (blur, rotation and shear; with the fast flags also scale) at 0 LSB
+    against the plain versions on the values the sweep drew; the noise
+    changes the image. Returns the LSB of each checked type."""
+    from imagetransformations_tpu_torch.ops import stencil as st
     from imagetransformations_tpu_torch.ops import warp as wp
     from imagetransformations_tpu_torch.ops.hopper import megakernel as mk
     from imagetransformations_tpu_torch.ops.hopper import resample as rs
@@ -429,7 +457,7 @@ def check_sweep(torch, x, res, kind: str) -> dict:
             fail(f"apply_all {t}: values {tuple(values.shape)}, out {tuple(out.shape)} {out.dtype}")
         if out.device != x.device:
             fail(f"apply_all {t}: output on {out.device}")
-    plain = {}
+    plain = {"blur": st.blur_batched_plain(x, res["blur"][0])}
     values = res["rotation"][0]
     if kind == "apply_all_fast":
         plain["rotation"] = rg.pil_rotate_nearest_plain(
@@ -691,6 +719,21 @@ def main() -> int:
                        routed("blur_separable", lambda: bl.blur_separable(x, r)),
                        st.gaussian_blur_plain(x, r))
         new_rows.append(row)
+        # one radius an image: the blur grid cycled over the batch (radius 0
+        # included), through the entry point and through apply_blur
+        # (every grid radius: a batch of at least 11 images)
+        xb = x if n >= len(BLUR_GRID) else images(torch, (len(BLUR_GRID), h, w), seed)
+        radii = torch.from_numpy(cycled(BLUR_GRID, xb.shape[0])).to(x.device)
+        row = {"phase": "parity", "kernel": "blur_separable_batched", "shape": [*xb.shape],
+               "radii": sorted(set(radii.tolist()))}
+        want = st.blur_batched_plain(xb, radii)
+        parity_row("blur_separable_batched", row,
+                   routed("blur_separable_batched", lambda: bl.blur_separable_batched(xb, radii)),
+                   want)
+        parity_row("blur_separable_batched", row,
+                   routed("blur_separable_batched", lambda: st.apply_blur(xb, radii)), want)
+        new_rows.append(row)
+        del xb, want
         if h <= 5:
             continue
         # one shift vector for the batch, within and beyond an explicit pad
@@ -739,6 +782,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {k: 0 for k in mk.LAUNCHES}
     results = []
+    drawn_radii = None  # the blur radii the default sweep drew at 32x512x512
     for label, fn, shape, _, ref, reps, kernels in runs:
         x = inputs[label]
         for k in mk.LAUNCHES:
@@ -757,6 +801,8 @@ def main() -> int:
                "gpix_per_s": n * h * w / (ms * 1e-3) / 1e9, "launches": run_launches}
         if not callable(ref) and ref in SWEEP_FLAGS:
             row["max_lsb_vs_plain"] = check_sweep(torch, x, out, ref)
+            if ref == "apply_all" and shape == SHAPE_512:
+                drawn_radii = out["blur"][0]
         else:
             if out.shape != x.shape or out.dtype != torch.uint8 or out.device != x.device:
                 fail(f"{label}: bad output {tuple(out.shape)} {out.dtype} {out.device}")
@@ -797,6 +843,7 @@ def main() -> int:
     entries = []
     for kernel in KERNELS:
         library_ms, library_note = None, NO_LIBRARY.get(kernel, NO_LIBRARY_BLUR_ROTATE)
+        extra = {}
         if kernel in ("shear_rows_logrouted", "zoom_bilinear", "pil_rotate_nearest"):
             # the fast sweep's use of each at 32x512x512: grid parameters
             # cycled over the batch, computed once on the card
@@ -856,6 +903,32 @@ def main() -> int:
             lib = lambda: torch.nn.functional.conv2d(xf, weight, groups=3)
             library_ms, library_note = time_ms(torch, lib, 20), BLUR_LIBRARY_NOTE
             mode = f"r {BLUR_RADIUS} ({k} taps)"
+        elif kernel == "blur_separable_batched":
+            # the default sweep's blur at 32x512x512: the radii it drew
+            shape = SHAPE_512
+            n, h, w = shape
+            x = images(torch, shape, SEED + 100)
+            radii = drawn_radii
+            taps = st.blur_taps_batched(radii)
+            # the kernel on tap rows made outside the timing; the entry
+            # point with its taps (a few dozen PyTorch ops) is timed apart
+            run = lambda: bl._launch(x, taps, taps.shape[1], "blur_separable_batched")
+            plain = lambda: st.blur_batched_plain(x, radii)
+            b_ms, b_by = bound_blur_batched(torch, x, radii)
+            extra = {"entry_ms": time_ms(torch, lambda: bl.blur_separable_batched(x, radii), 20)}
+            if not torch.equal(run(), plain()):
+                fail("blur_separable_batched differs from its plain version on the drawn radii")
+            p = (taps.shape[1] - 1) // 2
+            xf = torch.nn.functional.pad(x.permute(0, 3, 1, 2).to(torch.float32), (p, p, p, p),
+                                         mode="reflect").reshape(1, 3 * n, h + 2 * p, w + 2 * p)
+            xf = xf.contiguous()
+            weight = (taps[:, :, None] * taps[:, None, :]).repeat_interleave(3, 0)[:, None]
+            weight = weight.contiguous()
+            lib = lambda: torch.nn.functional.conv2d(xf, weight, groups=3 * n)
+            library_ms, library_note = time_ms(torch, lib, 5), BLUR_BATCHED_LIBRARY_NOTE
+            ks = sorted(set(int(k) for k in (taps != 0).sum(1).tolist()))
+            mode = (f"radii drawn by apply_all (seed {SEED + 30}): "
+                    f"{sorted(set(round(v, 2) for v in radii.tolist()))}, K in {ks}")
         elif kernel in ("shear_rows", "shear_rows_per_image"):
             # shear_rows: pass 1 of rotate_3shear at 15 degrees (one shift
             # vector); shear_rows_per_image: the main path's [n, h] shifts
@@ -931,7 +1004,7 @@ def main() -> int:
             "ms": time_ms(torch, run, 20), "plain_ms": time_ms(torch, plain, 5),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms, "library_note": library_note,
-            "shape": [*shape, 3], "mode": mode,
+            "shape": [*shape, 3], "mode": mode, **extra,
         })
         del x, run, plain
 

@@ -10,7 +10,8 @@ fusion, HWC and float32 input), ``fused_blur_rotate_image`` and
 the warp ops ``apply_rotation``, ``random_zoom``, ``apply_shear`` and
 ``affine_warp``, and every Pallas entry point of the JAX package
 (``ops.hopper``: ``blur_separable``, ``shear_rows``,
-``shear_rows_per_image``, ``rotate_3shear``, ``blur_rotate_fused``, ...).
+``shear_rows_per_image``, ``rotate_3shear``, ``blur_rotate_fused``, ...),
+plus ``blur_separable_batched``, the per-image blur of the sweep.
 Hand-written CUDA kernels in ``csrc/``, one or more for each of the JAX
 package's twelve Pallas kernels, carry them on the card; they are built with
 nvcc at first use.
@@ -28,6 +29,7 @@ from imagetransformations_tpu_torch.core.grids import PARAM_GRIDS  # noqa: F401
 from imagetransformations_tpu_torch.ops.hopper import (  # noqa: F401
     blur_rotate_fused,
     blur_separable,
+    blur_separable_batched,
     blur_to_sheared_rows,
     fused_blur_rotate_batched,
     fused_blur_rotate_image,

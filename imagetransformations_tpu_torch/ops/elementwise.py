@@ -48,15 +48,23 @@ def apply_contrast(img: torch.Tensor, alpha) -> torch.Tensor:
 _LUMA_WEIGHTS = (19595, 38470, 7471)  # PIL L24 weights of R, G, B
 
 
+def _channel(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Channel ``k`` of an NHWC batch, clamped to the last channel as JAX
+    clamps an out-of-range index: a 1-channel image reads as (L, L, L), a
+    2-channel one as (c0, c1, c1)."""
+    return x[..., min(k, x.shape[-1] - 1)]
+
+
 def grayscale(img: torch.Tensor, keep_rgb: bool = True) -> torch.Tensor:
     """PIL convert('L'): ``(r*19595 + g*38470 + b*7471 + 0x8000) >> 16`` on
     the truncated, clipped pixel values (so f32 inputs give the same values
     as their u8 round trip). Three channels out with ``keep_rgb``, else
-    one; u8 for u8 input, else f32."""
+    one; u8 for u8 input, else f32. Fewer than 3 channels read as JAX reads
+    them (``_channel``): one channel is its own luma."""
     x, single = as_batch(img)
     xi = torch.clamp(torch.trunc(as_float(x)), 0.0, 255.0).to(torch.int32)
     wr, wg, wb = _LUMA_WEIGHTS
-    luma = (xi[..., 0] * wr + xi[..., 1] * wg + xi[..., 2] * wb + 0x8000) >> 16
+    luma = (_channel(xi, 0) * wr + _channel(xi, 1) * wg + _channel(xi, 2) * wb + 0x8000) >> 16
     out = luma[..., None]
     if keep_rgb:
         out = out.expand(*luma.shape, 3)

@@ -59,10 +59,15 @@ def _mix(planes, coeffs) -> list[torch.Tensor]:
 
 def histogram_equalization(img: torch.Tensor) -> torch.Tensor:
     """YUV-space luma equalization: RGB -> YUV in f32, the Y plane rounded,
-    clipped and equalized, back to RGB, rint and clip."""
+    clipped and equalized, back to RGB, rint and clip. Three channels out.
+    One channel reads as (L, L, L), as the JAX einsum broadcasts it; 2 or
+    more than 3 channels raise ValueError, as the JAX einsum does."""
     x, single = as_batch(img)
+    c = x.shape[-1]
+    if c not in (1, 3):
+        raise ValueError(f"histogram_equalization takes 1 or 3 channels, got {c}")
     xf = x.to(torch.float32)
-    y, u, v = _mix([xf[..., i] for i in range(3)], _RGB2YUV)
+    y, u, v = _mix([xf[..., min(i, c - 1)] for i in range(3)], _RGB2YUV)
     y_eq = equalize_channel(torch.clamp(torch.round(y), 0, 255)).to(torch.float32)
     rgb = torch.stack(_mix([y_eq, u, v], _YUV2RGB), dim=-1)
     out = torch.clamp(torch.round(rgb), 0, 255)

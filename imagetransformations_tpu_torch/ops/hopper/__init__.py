@@ -8,6 +8,7 @@ tensor and runs its plain PyTorch version on a CPU tensor.
 
 from imagetransformations_tpu_torch.ops.hopper.blur import (  # noqa: F401
     blur_separable,
+    blur_separable_batched,
     blur_to_sheared_rows,
 )
 from imagetransformations_tpu_torch.ops.hopper.megakernel import (  # noqa: F401

@@ -54,8 +54,8 @@ SIGNATURES = {
     "zoom_bilinear": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, out, mats, n, h, w, c, fill, stream
     "rotate_nearest": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, out, taps, p, n, h, w, c, stream
-    "blur_separable": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, out, taps, tap_stride, tap_width, n, h, w, c, stream
+    "blur_separable": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 #: kernel launches, by kernel: each wrapper call that launches its CUDA
@@ -67,12 +67,14 @@ SIGNATURES = {
 #: shear_rows counts under the Pallas entry point it carries:
 #: "shear_rows_logrouted", "shear_rows" (one shift vector for the batch) or
 #: "shear_rows_per_image"; rotate_nearest counts as "pil_rotate_nearest";
-#: blur_separable as itself, from both its entry points.
+#: blur_separable as "blur_separable" (one radius, from blur_separable and
+#: blur_to_sheared_rows) or "blur_separable_batched" (one radius an image).
 LAUNCHES = {
     "luma_blur_rotate": 0, "luma_blur_rotate_packed": 0, "rgb_blur_rotate": 0,
     "luma_blur_rotate_traced": 0, "rgb_blur_rotate_traced": 0, "shear_bicubic": 0,
     "shear_rows_logrouted": 0, "zoom_bilinear": 0, "pil_rotate_nearest": 0,
     "blur_separable": 0, "shear_rows": 0, "shear_rows_per_image": 0,
+    "blur_separable_batched": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

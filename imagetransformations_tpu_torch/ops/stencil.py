@@ -12,10 +12,11 @@ compiles (no Pallas kernel there):
   to right (t = 0..K-1), numpy "reflect" (cv2 reflect-101) borders, rint at
   the end. Per-image radii use taps computed in f32 on the device and
   zero-padded to ``MAX_BLUR_KSIZE``, as the JAX package does. On a CUDA u8
-  batch ``gaussian_blur`` runs the hand-written kernel of
-  ``ops.hopper.blur.blur_separable``, which computes this function in this
-  order (the JAX ``blur_separable`` is the Pallas form of it); elsewhere,
-  and for f32 input, its plain PyTorch form ``gaussian_blur_plain``.
+  batch both run the hand-written kernel of ``ops.hopper.blur``
+  (``blur_separable``, ``blur_separable_batched``), which computes this
+  function in this order (the JAX ``blur_separable`` is the Pallas form of
+  the one-radius blur); elsewhere, and for f32 input, their plain PyTorch
+  forms ``gaussian_blur_plain`` and ``blur_batched_plain``.
 - ``motion_blur``: horizontal 1 x k mean (cv2.filter2D, reflect-101).
 - ``sharpen``: PIL ImageEnhance.Sharpness, the SMOOTH 3x3 filter with its
   exact integer sum and one division by 13, then a trunc blend.
@@ -137,13 +138,25 @@ def blur_taps_batched(radii, max_ksize: int = MAX_BLUR_KSIZE) -> torch.Tensor:
 
 def apply_blur(img: torch.Tensor, radius) -> torch.Tensor:
     """Reference apply_blur (transformation.py:228-257), batched: ``radius``
-    is a python number (one radius) or one radius an image."""
+    is a python number (one radius) or one radius an image. A CUDA u8 batch
+    runs the kernel (``blur_separable`` or ``blur_separable_batched``),
+    anything else the plain version."""
     if isinstance(radius, (int, float)):
         return gaussian_blur(img, float(radius))
-    return _blur_batched(img, radius)
+    if img.device.type == "cuda" and img.dtype == torch.uint8:
+        # imported here: ops.hopper.blur imports this module at its top
+        from imagetransformations_tpu_torch.ops.hopper.blur import blur_separable_batched
+
+        x, single = as_batch(img)
+        return restore_layout(blur_separable_batched(x, radius), single)
+    return blur_batched_plain(img, radius)
 
 
-def _blur_batched(img: torch.Tensor, radii) -> torch.Tensor:
+def blur_batched_plain(img: torch.Tensor, radii) -> torch.Tensor:
+    """cv2.GaussianBlur with one radius an image, in plain PyTorch on the
+    tensor's device: the two passes with each image's zero-padded 31-wide
+    tap row (the plain version of the ``blur_separable_batched`` kernel for
+    u8 input)."""
     x, single = as_batch(img)
     taps = blur_taps_batched(torch.as_tensor(radii, dtype=torch.float32, device=x.device))
     out = _conv1d(_conv1d(as_float(x), taps, 1), taps, 2)

@@ -249,12 +249,14 @@ def test_fast_compile_spec_matches_jax():
 
 def test_fast_compile_falls_back_for_other_inputs(rng):
     """A gray chain on a 1-channel batch is not the kernel's: the normal
-    build takes it, whose grayscale op raises on one channel, as the JAX
-    chain raises there; float32 input takes the normal build too."""
+    build takes it and computes (grayscale of one channel is its own luma),
+    with the same output; float32 input takes the normal build too."""
     ops = [OpSpec("blur", {"radius": 1.5}), OpSpec("rotation", {"angle": 15.0}),
            OpSpec("grayscale")]
     fc = build_chain_fn(ops, fast_compile=True, device="cpu")
-    with pytest.raises(IndexError):
-        fc(rng.integers(0, 256, (1, 40, 36, 1), dtype=np.uint8))
+    one_channel = rng.integers(0, 256, (1, 40, 36, 1), dtype=np.uint8)
+    out = fc(one_channel)
+    assert out.shape == (1, 40, 36, 3)
+    assert torch.equal(out, build_chain_fn(ops, device="cpu")(one_channel))
     floats = rng.random((1, 40, 36, 3), dtype=np.float32) * 255
     assert torch.equal(fc(floats), build_chain_fn(ops, device="cpu")(floats))

@@ -107,14 +107,16 @@ def test_unported_chains_raise(rng, ops, kwargs, item):
 
 
 def test_unported_inputs_raise_at_call(rng):
-    """HWC and float32 inputs run op by op, as in JAX; grayscale of one
-    channel raises in both packages."""
+    """HWC and float32 inputs run op by op, as in JAX. A blur > grayscale
+    chain on one channel computes: the blur segment, then the grayscale of
+    one channel (its own luma, repeated to 3 channels), 0 LSB against the
+    stream oracle; the JAX chain raises there, from its megakernel."""
     gray_chain = [("blur", {"radius": 1.5}), ("grayscale", {})]
     fn = tchain.build_chain_fn(_ops(tchain, gray_chain), device="cpu")
     jfn = jchain.build_chain_fn(_ops(jchain, gray_chain))
     one_channel = rng.integers(0, 256, (1, 40, 36, 1), dtype=np.uint8)
-    with pytest.raises(IndexError):
-        fn(one_channel)
+    want = np.repeat(ofw.fused_stream_chain(one_channel, 1.5, 0.0), 3, axis=-1)
+    assert np.array_equal(fn(one_channel).numpy(), want)
     with pytest.raises(TypeError):
         jfn(jnp.asarray(one_channel))
     hwc = rng.integers(0, 256, (40, 36, 3), dtype=np.uint8)

@@ -240,6 +240,46 @@ def test_blur_separable_wide_window_and_sheared_rows(rng, cuda):
     assert torch.equal(out.cpu(), bl.blur_to_sheared_rows(x.cpu(), 1.5, 9, 200, 7))
 
 
+BLUR_GRID = [0.5 * i for i in range(11)]  # apply_all's radii 0:0.5:5
+
+
+@pytest.mark.parametrize("shape", [(12, 48, 40, 3), (12, 5, 7, 3), (12, 33, 70, 1),
+                                   (12, 17, 300, 4), (12, 1, 9, 3)])
+def test_blur_separable_batched_equals_plain(rng, cuda, shape):
+    """One radius an image, in a shuffled order: every grid radius (0: a
+    copy) and 6.0, whose 31-wide tap row is cut and renormalised as the
+    plain version cuts it. One launch a call."""
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    radii = torch.tensor(rng.permutation(BLUR_GRID + [6.0]), dtype=torch.float32, device=cuda)
+    before = mk.LAUNCHES["blur_separable_batched"]
+    out = bl.blur_separable_batched(x, radii)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["blur_separable_batched"] == before + 1
+    assert torch.equal(out, st.blur_batched_plain(x, radii))
+    assert torch.equal(out[radii == 0], x[radii == 0])
+    assert torch.equal(out.cpu(), bl.blur_separable_batched(x.cpu(), radii.cpu()))
+
+
+def test_apply_blur_with_an_array_runs_the_kernel(rng, cuda):
+    x = torch.from_numpy(rng.integers(0, 256, (4, 40, 48, 3), dtype=np.uint8)).to(cuda)
+    radii = torch.tensor([0.0, 1.5, 3.0, 5.0], device=cuda)
+    before = dict(mk.LAUNCHES)
+    out = st.apply_blur(x, radii)
+    torch.cuda.synchronize()
+    assert mk.LAUNCHES["blur_separable_batched"] == before["blur_separable_batched"] + 1
+    assert mk.LAUNCHES["blur_separable"] == before["blur_separable"]
+    assert torch.equal(out, st.blur_batched_plain(x, radii))
+    hwc = st.apply_blur(x[1], radii[1:2])  # one HWC image: a batch of one
+    assert torch.equal(hwc, out[1])
+
+
+def test_blur_kernel_strides_over_more_than_65535_images(rng, cuda):
+    x = torch.from_numpy(rng.integers(0, 256, (70000, 3, 4, 1), dtype=np.uint8)).to(cuda)
+    radii = torch.from_numpy(np.resize(np.float32(BLUR_GRID), 70000)).to(cuda)
+    assert torch.equal(bl.blur_separable(x, 1.5), st.gaussian_blur_plain(x, 1.5))
+    assert torch.equal(bl.blur_separable_batched(x, radii), st.blur_batched_plain(x, radii))
+
+
 # ---------------------------------------------------------------- row shifts, 3-shear
 
 
