@@ -11,12 +11,14 @@ and per-image angles, in strict mode, with an affine run, a rotation beyond
 ``apply_all_transformations`` sweep with its default flags and with the
 fast scale/shear and PIL rotation; ``blur_separable``, ``rotate_3shear``,
 ``blur_rotate_fused`` and ``shear_rows_per_image``) at the benchmark shapes,
+with rotate_3shear's middle pass on the column kernel (no transposes),
 with the sweep's per-image blur on ``blur_separable_batched``,
 each with the launch counters reset just before it and read just after,
 times each sweep type, and times each kernel beside its bound and, where
 one exists, a PyTorch call that computes the same function or samples the
-same way. Prints one JSON line per phase; the last line is
-``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
+same way: ``ms`` a wrapper call (CUDA events), ``device_ms`` its kernels'
+device time alone (torch.profiler). Prints one JSON line per phase; the
+last line is ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
 Imports nothing of JAX.
 """
@@ -112,7 +114,16 @@ KERNELS = {
         source="imagetransformations_tpu_torch/csrc/shear_rows.cu",
         replaces="imagetransformations_tpu/ops/pallas/shear.py:182",
     ),
+    # rotate_3shear's middle pass: kernel #7 on a transposed slab in JAX
+    # (ops/pallas/shear.py:388,392), a column shift in place here. Its
+    # wrapper counts under "shear_cols" and under "shear_rows" (the pass of
+    # #7 it carries); the kernels line gives #7 the row launches alone.
+    "shear_cols": dict(
+        source="imagetransformations_tpu_torch/csrc/shear_rows.cu",
+        replaces="imagetransformations_tpu/ops/pallas/shear.py:67",
+    ),
 }
+COL_PASS = "shear_cols"
 # why no single PyTorch call is timed beside a kernel (library_ms null)
 NO_LIBRARY = {
     "shear_bicubic": "grid_sample(mode='bicubic') uses A=-0.75 and other borders; "
@@ -158,6 +169,37 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean device time of one fn() call: the self time of every CUDA kernel
+    it launches, under torch.profiler, over `reps` calls after two warm-up
+    calls. Host time between launches is not counted, so for a kernel
+    faster than its wrapper's host overhead this is the kernel's time, where
+    ``time_ms`` is the wrapper's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if us <= 0:
+        fail("torch.profiler recorded no device time")
+    return us / reps / 1e3
+
+
+def row_launches(launches: dict, kernel: str) -> int:
+    """A kernel's launches in ``launches`` (the wrappers' counters), with
+    "shear_rows" its row passes alone: the column pass's wrapper counts
+    under both keys, and each kernel of a run must launch on its own."""
+    if kernel == "shear_rows":
+        return launches["shear_rows"] - launches[COL_PASS]
+    return launches[kernel]
 
 
 def max_lsb(torch, a, b) -> int:
@@ -233,6 +275,17 @@ def bound_shear_rows(torch, x, shifts, b_px):
     cols = torch.clamp(torch.clamp(w + k, max=w - 1) - torch.clamp(k, min=0) + 1, min=0)
     nbytes = int(cols.sum().item()) * c + n * h * w * c + shifts.numel() * 4
     return bound_of(nbytes, n * h * w * (7 * c + 3) + n * h * 5)
+
+
+def bound_shear_cols(torch, x, shifts, b_px):
+    """Column pass: ``bound_shear_rows`` with h in the place of w, one
+    shift a column for the batch. Reads rows max(0, k) .. min(h-1, h+k) of
+    each column of each image."""
+    n, h, w, c = x.shape
+    k = torch.clamp(torch.floor(shifts), -b_px, b_px)
+    rows = torch.clamp(torch.clamp(h + k, max=h - 1) - torch.clamp(k, min=0) + 1, min=0)
+    nbytes = n * int(rows.sum().item()) * c + n * h * w * c + shifts.numel() * 4
+    return bound_of(nbytes, n * h * w * (7 * c + 3) + w * 5)
 
 
 def bound_zoom(torch, x, factors):
@@ -414,12 +467,12 @@ def main_path_runs():
         ("blur_separable 512 r1.5", lambda x: bl.blur_separable(x, BLUR_RADIUS), SHAPE_512,
          SEED + 44, lambda x: st.gaussian_blur_plain(x, BLUR_RADIUS), 20, ("blur_separable",)),
         ("rotate_3shear 512 15deg", lambda x: sh.rotate_3shear(x, ANGLE), SHAPE_512, SEED + 45,
-         lambda x: sh.rotate_3shear_plain(x, ANGLE), 20, ("shear_rows",)),
+         lambda x: sh.rotate_3shear_plain(x, ANGLE), 20, ("shear_rows", COL_PASS)),
         ("blur_rotate_fused gray 512",
          lambda x: sh.blur_rotate_fused(x, BLUR_RADIUS, ANGLE, grayscale_out=True), SHAPE_512,
          SEED + 46, lambda x: sh.blur_rotate_fused_plain(x, BLUR_RADIUS, ANGLE,
                                                          grayscale_out=True), 20,
-         ("blur_separable", "shear_rows")),
+         ("blur_separable", "shear_rows", COL_PASS)),
         ("shear_rows_per_image 512",
          lambda x: sh.shear_rows_per_image(x, per_image_shifts, fill=255, pad_px=PER_IMAGE_PAD),
          SHAPE_512, SEED + 47,
@@ -759,6 +812,21 @@ def main() -> int:
                    sh.blur_rotate_fused(x, BLUR_RADIUS, ANGLE, grayscale_out=True),
                    sh.blur_rotate_fused_plain(x, BLUR_RADIUS, ANGLE, grayscale_out=True))
         new_rows.append(row)
+        # the column pass: Paeth shifts (rotate_3shear's pass 2) and random
+        # shift vectors, within and beyond the saturation bound, against its
+        # plain version and against the row pass between two transposes
+        cols = [sh._rotation_shifts(h, w, a, x.device)[2:] + (0,) for a in (ANGLE, -44.0)]
+        sy = ((torch.rand((w,), generator=g, device="cuda") - 0.5) * h).contiguous()
+        cols += [(sy, math.ceil(float(sy.abs().max())) + 1, 255), (sy, 3, 9)]
+        row = {"phase": "parity", "kernel": COL_PASS, "shape": [*shape, 3],
+               "shifts": [f"Paeth {ANGLE} deg", "Paeth -44 deg", "random +-h/2",
+                          "random +-h/2, b_px 3"]}
+        for sy, b_px, fill in cols:
+            got = routed(COL_PASS, lambda: sh._col_shift(x, sy, fill, b_px))
+            parity_row(COL_PASS, row, got, sh.shear_cols_plain(x, sy, fill, b_px))
+            parity_row(COL_PASS, row, got,
+                       sh._swap_hw(sh.shear_rows_plain(sh._swap_hw(x), sy, fill, b_px)))
+        new_rows.append(row)
         per_image = per_image_row_shifts(torch, n, h, "cuda")
         row = {"phase": "parity", "kernel": "shear_rows_per_image", "shape": [*shape, 3],
                "pad_px": PER_IMAGE_PAD,
@@ -790,7 +858,7 @@ def main() -> int:
         out = fn(x)
         ms = time_ms(torch, lambda: fn(x), reps)
         torch.cuda.synchronize()
-        run_launches = {k: v for k, v in mk.LAUNCHES.items() if v}
+        run_launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
         for k, v in run_launches.items():
             launches[k] += v
         missing = [k for k in kernels if not run_launches.get(k)]
@@ -929,6 +997,22 @@ def main() -> int:
             ks = sorted(set(int(k) for k in (taps != 0).sum(1).tolist()))
             mode = (f"radii drawn by apply_all (seed {SEED + 30}): "
                     f"{sorted(set(round(v, 2) for v in radii.tolist()))}, K in {ks}")
+        elif kernel == COL_PASS:
+            # pass 2 of rotate_3shear at 15 degrees: one shift a column
+            shape = SHAPE_512
+            n, h, w = shape
+            x = images(torch, shape, SEED + 100)
+            sy, by = sh._rotation_shifts(h, w, ANGLE, x.device)[2:]
+            run = lambda: sh._col_shift(x, sy, 0, by)
+            plain = lambda: sh.shear_cols_plain(x, sy, 0, by)
+            b_ms, b_by = bound_shear_cols(torch, x, sy, by)
+            xo = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, w) + 0.5
+            yo = torch.arange(h, dtype=torch.float32, device=x.device).view(1, h, 1) + 0.5
+            lib = grid_sample_call(torch, x, xo.expand(n, h, w),
+                                   (yo + sy.view(1, 1, w)).expand(n, h, w), "bilinear")
+            library_ms, library_note = time_ms(torch, lib, 20), LIBRARY_NOTE.format(
+                mode="'bilinear'")
+            mode = f"rotate_3shear pass 2 at {ANGLE} deg, fill 0"
         elif kernel in ("shear_rows", "shear_rows_per_image"):
             # shear_rows: pass 1 of rotate_3shear at 15 degrees (one shift
             # vector); shear_rows_per_image: the main path's [n, h] shifts
@@ -1001,7 +1085,8 @@ def main() -> int:
         entries.append({
             "name": kernel, "route": "cuda", **KERNELS[kernel],
             "launches": launches[kernel], "max_abs_err": errs[kernel],
-            "ms": time_ms(torch, run, 20), "plain_ms": time_ms(torch, plain, 5),
+            "ms": time_ms(torch, run, 20), "device_ms": device_ms(torch, run, 20),
+            "plain_ms": time_ms(torch, plain, 5),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms, "library_note": library_note,
             "shape": [*shape, 3], "mode": mode, **extra,

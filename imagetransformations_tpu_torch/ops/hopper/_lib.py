@@ -7,8 +7,9 @@ builds anew and an unchanged one is reused. Nothing is built at import:
 the first :func:`load` builds every missing library, all ``nvcc`` processes
 started together. A failed build raises.
 
-Each library exports one C entry point that takes every pointer and the
-stream as ``void*`` and returns ``cudaGetLastError()`` (0 on success).
+Each library exports C entry points (one named like the library, and
+``shear_rows`` also ``shear_cols``) that take every pointer and the stream
+as ``void*`` and return a CUDA error code (0 on success).
 """
 
 from __future__ import annotations
@@ -36,26 +37,30 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: C entry point of each library: (argtypes), named like its source file
+#: C entry points of each library, by the library's name (its source file):
+#: {entry point: argtypes}
 SIGNATURES = {
     # x, scratch, out, taps, p, k1, f1, k2, f2, stride_h, stride_w,
     # n, h, w, fill, images_per_block, stream
-    "luma_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                         _I, _I, _I, _I, _I, _P),
+    "luma_blur_rotate": {"luma_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                              _I, _I, _I, _I, _I, _P)},
     # x, scratch, out, taps, p, k1, f1, k2, f2, stride_h, stride_w,
     # n, h, w, c, fill, strict, grayscale, identity, identity_stride, stream
-    "rgb_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+    "rgb_blur_rotate": {"rgb_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                            _I, _I, _I, _I, _I, _I, _I, _P, _I, _P)},
     # x, out, factors, n, h, w, c, stream
-    "shear_bicubic": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # x, out, shifts, shift_stride, n, h, w, c, fill, b_px, grayscale, stream
-    "shear_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "shear_bicubic": {"shear_bicubic": (_P, _P, _P, _I, _I, _I, _I, _P)},
+    # shear_rows: x, out, shifts, shift_stride, n, h, w, c, fill, b_px,
+    # grayscale, stream; shear_cols: x, out, shifts, n, h, w, c, fill, b_px,
+    # stream
+    "shear_rows": {"shear_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                   "shear_cols": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
     # x, out, factors, n, h, w, c, stream
-    "zoom_bilinear": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "zoom_bilinear": {"zoom_bilinear": (_P, _P, _P, _I, _I, _I, _I, _P)},
     # x, out, mats, n, h, w, c, fill, stream
-    "rotate_nearest": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rotate_nearest": {"rotate_nearest": (_P, _P, _P, _I, _I, _I, _I, _I, _P)},
     # x, out, taps, tap_stride, tap_width, n, h, w, c, stream
-    "blur_separable": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "blur_separable": {"blur_separable": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
 }
 
 #: kernel launches, by kernel: each wrapper call that launches its CUDA
@@ -66,7 +71,9 @@ SIGNATURES = {
 #: (the counterparts of the per-image-angle Pallas kernels). The library
 #: shear_rows counts under the Pallas entry point it carries:
 #: "shear_rows_logrouted", "shear_rows" (one shift vector for the batch) or
-#: "shear_rows_per_image"; rotate_nearest counts as "pil_rotate_nearest";
+#: "shear_rows_per_image"; its column pass (rotate_3shear's middle pass)
+#: under "shear_cols" and, as the pass of "shear_rows" it carries, there
+#: too; rotate_nearest counts as "pil_rotate_nearest";
 #: blur_separable as "blur_separable" (one radius, from blur_separable and
 #: blur_to_sheared_rows) or "blur_separable_batched" (one radius an image).
 LAUNCHES = {
@@ -74,7 +81,7 @@ LAUNCHES = {
     "luma_blur_rotate_traced": 0, "rgb_blur_rotate_traced": 0, "shear_bicubic": 0,
     "shear_rows_logrouted": 0, "zoom_bilinear": 0, "pil_rotate_nearest": 0,
     "blur_separable": 0, "shear_rows": 0, "shear_rows_per_image": 0,
-    "blur_separable_batched": 0,
+    "blur_separable_batched": 0, "shear_cols": 0,
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -147,9 +154,10 @@ def load(name: str) -> ctypes.CDLL:
             if not path.exists():
                 build_all()
             lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, name)
-            fn.argtypes = SIGNATURES[name]
-            fn.restype = ctypes.c_int
+            for entry, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
         return lib
 

@@ -10,12 +10,13 @@ Counterparts of the JAX package's ``ops/pallas/shear.py`` entry points:
 ``shear_rows`` (one shift a row for the batch, optional grayscale post-op),
 ``shear_rows_per_image`` (a shift a row and image), ``shear_rows_logrouted``
 (the same, with the log-routed kernel's saturation bound), and the
-rotations ``rotate_3shear`` (three ``shear_rows`` passes with plain
-transposes between them), ``blur_rotate_fused`` (``blur_separable``, then
-``rotate_3shear``) and ``rotate_3shear_batched``. On the card one
-hand-written kernel, ``csrc/shear_rows.cu``, carries all three row shifts;
-beside it sits its plain PyTorch version, which repeats the kernel's f32
-arithmetic op for op. A CPU tensor runs the plain version, a CUDA tensor
+rotations ``rotate_3shear`` (a row pass, a column pass, a row pass),
+``blur_rotate_fused`` (``blur_separable``, then ``rotate_3shear``) and
+``rotate_3shear_batched``. On the card one hand-written library,
+``csrc/shear_rows.cu``, carries all three row shifts and the column pass
+(the Pallas rotation runs that pass as a row shift between two transposes,
+a TPU layout need); beside each sits its plain PyTorch version, which
+repeats the kernel's f32 arithmetic op for op. A CPU tensor runs the plain version, a CUDA tensor
 the kernel (or the call raises); nothing falls back.
 """
 
@@ -96,6 +97,30 @@ def shear_rows_plain(x: torch.Tensor, shifts: torch.Tensor, fill: int, b_px: int
     return luma[..., None].expand(n, h, w, 3).contiguous()
 
 
+def shear_cols_plain(x: torch.Tensor, shifts: torch.Tensor, fill: int,
+                     b_px: int) -> torch.Tensor:
+    """Plain version of the column pass: column x of NHWC u8 ``x`` shifted
+    along y by the f32 ``shifts[x]`` ([w], one vector for the batch), the
+    lerp, trunc, fill, saturation at +-``b_px`` and border fill-lerps of
+    ``shear_rows_plain`` with h in the place of w. A gather along y: equal
+    to transposing h and w, ``shear_rows_plain``, transposing back."""
+    n, h, w, c = x.shape
+    k = torch.floor(shifts)
+    f = (shifts - k).view(1, 1, w, 1)
+    ki = torch.clamp(k, -b_px, b_px).to(torch.int64).view(1, w)
+    j = torch.arange(h, device=x.device).view(h, 1) + ki  # upper tap, [h, w]
+    v = x.to(torch.float32)
+
+    def tap(idx: torch.Tensor) -> torch.Tensor:
+        got = torch.gather(v, 1, idx.clamp(0, h - 1).view(1, h, w, 1).expand(n, h, w, c))
+        return torch.where(((idx >= 0) & (idx < h)).view(1, h, w, 1), got, float(fill))
+
+    a, b = tap(j), tap(j + 1)
+    out = torch.trunc(a + f * (b - a))  # between a and b: no clip
+    keep = ((j >= -1) & (j <= h - 1)).view(1, h, w, 1)
+    return torch.where(keep, out, float(fill)).to(torch.uint8)
+
+
 def _check_u8(img, fill: int) -> None:
     if not isinstance(img, torch.Tensor) or img.ndim != 4 or img.dtype != torch.uint8:
         raise ValueError("expected an NHWC uint8 tensor")
@@ -124,8 +149,6 @@ def _row_shift(x: torch.Tensor, s: torch.Tensor, fill: int, b_px: int, grayscale
         return shear_rows_plain(x, s, fill, b_px, grayscale)
     if x.device.type != "cuda":
         raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
-    if h > 65535:
-        raise ValueError("shear_rows launches one block row per image row: h <= 65535")
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -214,6 +237,35 @@ def shear_rows_logrouted(img: torch.Tensor, shifts, fill: int = 0,
     return _row_shift(img.contiguous(), s, int(fill), b_px, False, "shear_rows_logrouted")
 
 
+def _col_shift(x: torch.Tensor, s: torch.Tensor, fill: int, b_px: int) -> torch.Tensor:
+    """The column pass on NHWC u8 ``x`` with shifts ``s`` [w] (taken as
+    f32 on ``x``'s device): the plain version on the CPU, the
+    ``shear_cols`` kernel on CUDA, counted under "shear_cols" and under
+    "shear_rows" (the pass of kernel #7 it carries)."""
+    _check_u8(x, fill)
+    n, h, w, c = x.shape
+    s = torch.as_tensor(s, dtype=torch.float32, device=x.device).contiguous()
+    if s.shape != (w,):
+        raise ValueError(f"expected {w} column shifts, got {tuple(s.shape)}")
+    if x.device.type == "cpu":
+        return shear_cols_plain(x, s, fill, b_px)
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    lib = _lib.load("shear_rows")
+    with torch.cuda.device(x.device):
+        err = lib.shear_cols(x.data_ptr(), out.data_ptr(), s.data_ptr(), n, h, w, c,
+                             int(fill), int(b_px),
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    _lib.check("shear_cols", err)
+    _lib.LAUNCHES["shear_cols"] += 1
+    _lib.LAUNCHES["shear_rows"] += 1
+    return out
+
+
 # ---------------------------------------------------------------- 3-shear rotation
 
 
@@ -234,36 +286,41 @@ def _rotation_shifts(h: int, w: int, angle_deg: float, device: torch.device):
 
 
 def _rotate_3shear(img: torch.Tensor, angle_deg: float, fill: int, grayscale_out: bool,
-                   shift) -> torch.Tensor:
+                   rows, cols) -> torch.Tensor:
     _check_u8(img, fill)
     n, h, w, c = img.shape
     sx, bx, sy, by = _rotation_shifts(h, w, float(angle_deg), img.device)
-    y1 = shift(img, sx, bx, fill, None)
-    y2 = _swap_hw(shift(_swap_hw(y1), sy, by, fill, None))
-    return shift(y2, sx, bx, fill, "grayscale" if grayscale_out else None)
+    y1 = rows(img, sx, bx, fill, None)
+    y2 = cols(y1, sy, by, fill)
+    return rows(y2, sx, bx, fill, "grayscale" if grayscale_out else None)
 
 
 def rotate_3shear(img: torch.Tensor, angle_deg: float, fill: int = 0,
                   grayscale_out: bool = False) -> torch.Tensor:
     """Rotate an NHWC u8 batch by ``angle_deg`` (the reference's
-    apply_rotation sign convention) by three ``shear_rows`` passes: x by
-    row, y by column (a row shift of the transposed image, plain
-    transposes around it), x by row, u8 trunc after each. Shifts are the
-    host-f64 ``_row_shifts`` cast to f32, each pass's bound
-    ``ceil(max|s|) + 1``. ``grayscale_out`` rides on pass 3. Any angle.
+    apply_rotation sign convention) by three shears: x by row
+    (``shear_rows``), y by column (the column pass, in place: no
+    transpose), x by row, u8 trunc after each. Shifts are the host-f64
+    ``_row_shifts`` cast to f32, each pass's bound ``ceil(max|s|) + 1``.
+    ``grayscale_out`` rides on pass 3. Any angle. Three kernel launches on
+    CUDA.
 
     Oracle: ``fast_warp.rotate_3shear`` (then PIL grayscale)."""
     return _rotate_3shear(img, angle_deg, fill, grayscale_out,
-                          lambda x, s, b, f, postop: shear_rows(x, s, f, b, postop))
+                          lambda x, s, b, f, postop: shear_rows(x, s, f, b, postop),
+                          lambda x, s, b, f: _col_shift(x, s, f, max(b, 1)))
 
 
 def rotate_3shear_plain(img: torch.Tensor, angle_deg: float, fill: int = 0,
                         grayscale_out: bool = False) -> torch.Tensor:
     """Plain version of ``rotate_3shear`` on the tensor's device: the same
-    passes through ``shear_rows_plain``."""
-    return _rotate_3shear(img, angle_deg, fill, grayscale_out,
-                          lambda x, s, b, f, postop: shear_rows_plain(x, s, f, max(b, 1),
-                                                                      postop == "grayscale"))
+    passes through ``shear_rows_plain``, the middle one as a row shift of
+    the transposed batch (the Pallas kernel's way), so it also holds the
+    column pass to its transposed form."""
+    return _rotate_3shear(
+        img, angle_deg, fill, grayscale_out,
+        lambda x, s, b, f, postop: shear_rows_plain(x, s, f, max(b, 1), postop == "grayscale"),
+        lambda x, s, b, f: _swap_hw(shear_rows_plain(_swap_hw(x), s, f, max(b, 1))))
 
 
 def blur_rotate_fused(img: torch.Tensor, radius: float, angle_deg: float, fill: int = 0,

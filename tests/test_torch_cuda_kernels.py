@@ -3,9 +3,9 @@
 The blur-rotate kernels with one angle for the batch and one an image, the
 BICUBIC shear, the row-shift shear, the bilinear zoom, the PIL NEAREST
 rotation, the separable Gaussian blur, the row shifts of ``shear_rows`` and
-``shear_rows_per_image`` and the 3-shear rotations built on them, the apply_all
-sweep (every flag combination) and ``build_chain_fn`` (every route) on the
-card against their CPU routes.
+``shear_rows_per_image``, the column pass and the 3-shear rotations built
+on them, the apply_all sweep (every flag combination) and ``build_chain_fn``
+(every route) on the card against their CPU routes.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one (the decision is made inside the fixture). The file
@@ -328,6 +328,128 @@ def test_rotate_3shear_and_blur_rotate_fused_equal_plain(rng, cuda, angle, gray)
     assert torch.equal(out.cpu(), sh.rotate_3shear(x.cpu(), angle, fill=5, grayscale_out=gray))
     assert torch.equal(fused.cpu(), sh.blur_rotate_fused(x.cpu(), 1.5, angle, fill=5,
                                                          grayscale_out=gray))
+
+
+# the redesigned row pass: channel counts 1-5, rows whose byte length is not
+# a multiple of 16, w in {1, 2, 3}, a row longer than one 4 KB segment
+ROW_KERNEL_SHAPES = [(2, 37, 53), (3, 23, 37), (2, 9, 1), (2, 7, 2), (3, 8, 3), (2, 5, 1500)]
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("hw", ROW_KERNEL_SHAPES)
+def test_shear_rows_kernel_cases_equal_plain(rng, cuda, c, hw):
+    """Shifts beyond +-(w+1), b_px 1 and w+2, fill 0 / 7 / 255, shift
+    stride 0 (shear_rows, with the grayscale flag at c = 3) and h
+    (shear_rows_per_image), each call against the plain version, 0 LSB."""
+    n, h, w = hw
+    x = torch.from_numpy(rng.integers(0, 256, (n, h, w, c), dtype=np.uint8)).to(cuda)
+    scale = 2.6 * (w + 3)
+    s1 = ((rng.random(h) - 0.5) * scale).astype(np.float32)
+    s2 = ((rng.random((n, h)) - 0.5) * scale).astype(np.float32)
+    s1[0], s2[0, 0], s2[-1, -1] = -(w + 4.5), w + 1.25, 0.0
+    for fill in (0, 7, 255):
+        for b_px in (1, w + 2):
+            for gray in ((False, True) if c == 3 else (False,)):
+                before = mk.LAUNCHES["shear_rows"]
+                out = sh.shear_rows(x, s1, fill, b_px, "grayscale" if gray else None)
+                assert mk.LAUNCHES["shear_rows"] == before + 1
+                want = sh.shear_rows_plain(x, torch.from_numpy(s1).to(cuda), fill, b_px, gray)
+                assert torch.equal(out, want), (fill, b_px, gray)
+            before = mk.LAUNCHES["shear_rows_per_image"]
+            out = sh.shear_rows_per_image(x, s2, fill, b_px)
+            assert mk.LAUNCHES["shear_rows_per_image"] == before + 1
+            assert torch.equal(out, sh.shear_rows_plain(x, torch.from_numpy(s2).to(cuda), fill,
+                                                        b_px)), (fill, b_px)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_shear_kernels_take_an_odd_data_ptr(rng, cuda, c):
+    """A contiguous view whose data starts at an odd address (2553 bytes an
+    image at c = 3): the row pass (every entry point) and the column pass."""
+    base = torch.from_numpy(rng.integers(0, 256, (4, 37, 23, c), dtype=np.uint8)).to(cuda)
+    x = base[1:]
+    assert x.is_contiguous() and (c != 3 or x.data_ptr() % 2 == 1)
+    n, h, w, _ = x.shape
+    s = torch.from_numpy(((rng.random((n, h)) - 0.5) * 40.0).astype(np.float32)).to(cuda)
+    assert torch.equal(sh.shear_rows(x, s[0], 7, 6), sh.shear_rows_plain(x, s[0], 7, 6))
+    assert torch.equal(sh.shear_rows_per_image(x, s, 255, w + 2),
+                       sh.shear_rows_plain(x, s, 255, w + 2))
+    assert torch.equal(sh.shear_rows_logrouted(x, s, 255, 12), sh.shear_rows_plain(x, s, 255, 13))
+    if c == 3:
+        assert torch.equal(sh.shear_rows(x, s[0], 0, 20, "grayscale"),
+                           sh.shear_rows_plain(x, s[0], 0, 20, True))
+    sy = torch.from_numpy(((rng.random(w) - 0.5) * 30.0).astype(np.float32)).to(cuda)
+    assert torch.equal(sh._col_shift(x, sy, 9, 16), sh.shear_cols_plain(x, sy, 9, 16))
+
+
+def test_shear_kernels_stride_over_more_than_65535_images(rng, cuda):
+    x = torch.from_numpy(rng.integers(0, 256, (70000, 3, 4, 1), dtype=np.uint8)).to(cuda)
+    s = torch.from_numpy(((rng.random((70000, 3)) - 0.5) * 8.0).astype(np.float32)).to(cuda)
+    assert torch.equal(sh.shear_rows_per_image(x, s, 3, 6), sh.shear_rows_plain(x, s, 3, 6))
+    assert torch.equal(sh.shear_rows(x, s[1], 3, 6), sh.shear_rows_plain(x, s[1], 3, 6))
+    sy = torch.from_numpy(np.float32([-1.5, 0.25, 2.75, -4.0])).to(cuda)
+    assert torch.equal(sh._col_shift(x, sy, 3, 5), sh.shear_cols_plain(x, sy, 3, 5))
+
+
+def test_shear_rows_indexes_more_than_2_to_the_32_segments(cuda):
+    """65537 images of 65536 one-byte rows: 2**32 + 65536 row segments, past
+    the 32-bit index path, onto the 64-bit one. Rows are independent, so
+    each slice of the output equals the plain version of that slice."""
+    n, h = 65537, 65536
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.empty((n, h, 1, 1), dtype=torch.uint8, device=cuda).random_(0, 256, generator=gen)
+    # shifts in (-1, 1): every output byte lerps its source byte with fill
+    s = ((torch.rand(h, generator=gen, device=cuda) - 0.5) * 1.98).contiguous()
+    s[:3] = torch.tensor([-1.25, 0.5, 0.0])
+    out = sh.shear_rows(x, s, 9, 3)
+    for lo in (0, n // 2, n - 3):
+        assert torch.equal(out[lo:lo + 3], sh.shear_rows_plain(x[lo:lo + 3], s, 9, 3)), lo
+    del x, out
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 5])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (3, 70, 45), (1, 160, 300), (64, 32, 32)])
+def test_column_pass_equals_plain(rng, cuda, c, shape):
+    """The column pass against shear_cols_plain and the transposed row pass:
+    Paeth shifts at several angles and random shift vectors, including spans
+    wider than the kernel's stage (taps read from device memory)."""
+    n, h, w = shape
+    x = torch.from_numpy(rng.integers(0, 256, (n, h, w, c), dtype=np.uint8)).to(cuda)
+    vectors = [sh._rotation_shifts(h, w, a, cuda)[2:] for a in (15.0, -44.0, 80.0)]
+    for spread in (0.5, 3.0):
+        s = ((rng.random(w) - 0.5) * 2 * spread * (h + 3)).astype(np.float32)
+        vectors.append((torch.from_numpy(s).to(cuda), int(np.ceil(np.abs(s).max())) + 1))
+        vectors.append((torch.from_numpy(s).to(cuda), 2))
+    for sy, b_px in vectors:
+        for fill in (0, 255):
+            before = dict(mk.LAUNCHES)
+            out = sh._col_shift(x, sy, fill, b_px)
+            assert mk.LAUNCHES["shear_cols"] == before["shear_cols"] + 1
+            assert mk.LAUNCHES["shear_rows"] == before["shear_rows"] + 1
+            want = sh.shear_cols_plain(x, sy, fill, b_px)
+            assert torch.equal(out, want), (b_px, fill)
+            assert torch.equal(out, sh._swap_hw(sh.shear_rows_plain(sh._swap_hw(x), sy, fill,
+                                                                    b_px)))
+
+
+def test_rotate_3shear_is_three_launches_and_no_transpose(rng, cuda, monkeypatch):
+    x = torch.from_numpy(rng.integers(0, 256, (3, 40, 45, 3), dtype=np.uint8)).to(cuda)
+    want = sh.rotate_3shear_plain(x, 15.0, fill=5, grayscale_out=True)
+    want_fused = sh.blur_rotate_fused_plain(x, 1.5, -30.0)
+
+    def no_transpose(_):
+        raise AssertionError("transposed on the card")
+
+    monkeypatch.setattr(sh, "_swap_hw", no_transpose)
+    before = mk.LAUNCHES["shear_rows"]
+    cols = mk.LAUNCHES["shear_cols"]
+    out = sh.rotate_3shear(x, 15.0, fill=5, grayscale_out=True)
+    assert mk.LAUNCHES["shear_rows"] == before + 3
+    assert mk.LAUNCHES["shear_cols"] == cols + 1
+    assert torch.equal(out, want)
+    assert torch.equal(sh.blur_rotate_fused(x, 1.5, -30.0), want_fused)
+    assert mk.LAUNCHES["shear_rows"] == before + 6
+    assert mk.LAUNCHES["shear_cols"] == cols + 2
 
 
 @pytest.mark.parametrize("shape,radius,angle,gray,stream", [
