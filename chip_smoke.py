@@ -12,12 +12,16 @@ and per-image angles, in strict mode, with an affine run, a rotation beyond
 fast scale/shear and PIL rotation; ``blur_separable``, ``rotate_3shear``,
 ``blur_rotate_fused`` and ``shear_rows_per_image``) at the benchmark shapes,
 with rotate_3shear's middle pass on the column kernel (no transposes),
-with the sweep's per-image blur on ``blur_separable_batched``,
+with the sweep's per-image blur on ``blur_separable_batched``, with the
+rgb blur-rotate kernel's tiles held at large angles, 1 and 4 channels and
+the sweep's budget edge,
 each with the launch counters reset just before it and read just after,
 times each sweep type, and times each kernel beside its bound and, where
 one exists, a PyTorch call that computes the same function or samples the
 same way: ``ms`` a wrapper call (CUDA events), ``device_ms`` its kernels'
-device time alone (torch.profiler). Prints one JSON line per phase; the
+device time alone (torch.profiler); the rgb kernel's entries add rows
+(``modes``) for stream mode, strict at radius 0 beside ``rotate_3shear``
+and the sweep's use at 4096x32x32. Prints one JSON line per phase; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
 Imports nothing of JAX.
@@ -151,9 +155,9 @@ def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
-def images(torch, shape, seed):
+def images(torch, shape, seed, c=3):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randint(0, 256, (*shape, 3), generator=g, device="cuda", dtype=torch.uint8)
+    return torch.randint(0, 256, (*shape, c), generator=g, device="cuda", dtype=torch.uint8)
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -535,6 +539,61 @@ def check_sweep(torch, x, res, kind: str) -> dict:
     return lsb
 
 
+def rgb_modes(torch, mk, sh, kernel, run_launches) -> list:
+    """The kernels line's further rows of the tile kernel, each held at 0
+    LSB against the plain version: #3 in stream mode (the chain's use) and
+    strict at radius 0 beside ``rotate_3shear``, the same function by three
+    row / column launches, on the same batch; #5 at 4096x32x32 (apply_all's
+    CIFAR use). launches: the main-path run's count (0: no run uses it)."""
+    rows = []
+    if kernel == "rgb_blur_rotate":
+        n, h, w = SHAPE_512
+        x = images(torch, SHAPE_512, SEED + 102)
+        for radius, stream, run_label in ((BLUR_RADIUS, True, "chain blur>rotate 512"),
+                                          (0.0, False, None)):
+            taps, p, k1, f1, k2, f2 = mk._params(h, w, radius, ANGLE, x.device)
+            slopes = mk.slope_bound(ANGLE)
+            run = lambda: mk.rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, not stream, False,
+                                             False, slopes=slopes)
+            want = mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0, not stream, False,
+                                            False)
+            row = mode_row(torch, ("stream" if stream else "strict") + f" r {radius} {ANGLE} deg",
+                           SHAPE_512, run, want, bound(n, h, w, 3, 3, ops_rgb(p, not stream,
+                                                                           False, False)),
+                           run_launches.get(run_label, {}).get(kernel, 0))
+            if not stream:
+                r3 = lambda: sh.rotate_3shear(x, ANGLE)
+                if max_lsb(torch, r3(), want) != 0:
+                    fail("rotate_3shear differs from the strict r 0 tile kernel")
+                row["rotate_3shear_ms"] = time_ms(torch, r3, 20)
+                row["rotate_3shear_device_ms"] = device_ms(torch, r3, 20)
+            rows.append(row)
+    else:
+        n, h, w = SHAPE_32
+        x = images(torch, SHAPE_32, SEED + 103)
+        taps, p = mk._params(h, w, 0.0, 0.0, x.device)[:2]
+        k1, f1, k2, f2, ident = mk._traced_params(cycled(ROTATION_GRID, n), n, h, w, 25.0,
+                                                  x.device)
+        slopes = mk.budget_slope_bound(25.0)
+        run = lambda: mk.rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, True, False, ident,
+                                         slopes=slopes)
+        want = mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0, True, False, ident)
+        rows.append(mode_row(torch, "strict r 0 per-image angles (apply_all)", SHAPE_32, run,
+                             want, bound(n, h, w, 3, 3, ops_rgb(0, True, False, False)),
+                             run_launches.get("apply_all_transformations 32 (cifar)",
+                                              {}).get(kernel, 0)))
+    return rows
+
+
+def mode_row(torch, mode, shape, run, want, b, launches) -> dict:
+    err = max_lsb(torch, run(), want)
+    if err != 0:
+        fail(f"{mode} {shape}: the kernel differs from its plain version by {err} LSB")
+    return {"mode": mode, "shape": [*shape, 3], "ms": time_ms(torch, run, 20),
+            "device_ms": device_ms(torch, run, 20), "bound_ms": b[0], "bound_by": b[1],
+            "launches": launches, "max_abs_err": err}
+
+
 def main() -> int:
     import torch
 
@@ -674,6 +733,59 @@ def main() -> int:
         if ref is not None:
             refs[ref] = plain
         del x, out, kern, plain
+
+    # the tile kernel at large angles (its footprint grows toward the k clip,
+    # the tiles shrink and R1 is cut into chunks) and at 1 and 4 channels;
+    # each case: (shape, c, radius, angle, fill, gray, stream)
+    tile_cases = [
+        (SHAPE_512, 3, BLUR_RADIUS, 45.0, 0, True, False),
+        (SHAPE_512, 3, BLUR_RADIUS, 90.0, 0, False, True),
+        (SHAPE_512, 3, 0.0, 135.0, 255, False, False),
+        (SHAPE_512, 3, BLUR_RADIUS, 170.0, 128, False, False),
+        (SHAPE_224, 1, BLUR_RADIUS, ANGLE, 0, False, False),
+        (SHAPE_224, 4, 5.0, -30.0, 7, False, True),
+    ]
+    for i, (shape, c, radius, angle, fill, gray, stream) in enumerate(tile_cases):
+        x = images(torch, shape, SEED + 60 + i, c)
+        n, h, w = shape
+        before = mk.LAUNCHES["rgb_blur_rotate"]
+        out = fused_blur_rotate_image(x, radius, angle, fill=fill, grayscale_out=gray,
+                                      stream=stream)
+        if mk.LAUNCHES["rgb_blur_rotate"] != before + 1:
+            fail(f"tile case {i} did not route to rgb_blur_rotate: {mk.LAUNCHES}")
+        taps, p, k1, f1, k2, f2 = mk._params(h, w, radius, angle, x.device)
+        plain = mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill, not stream, gray,
+                                         angle == 0.0)
+        t = mk._tiling(h, w, p, c, mk.slope_bound(angle))
+        torch.cuda.synchronize()
+        err = max_lsb(torch, out, plain)
+        emit({"phase": "parity", "kernel": "rgb_blur_rotate", "shape": [*shape, c],
+              "radius": radius, "angle": angle, "fill": fill, "grayscale": gray,
+              "stream": stream, "tiling": t._asdict(), "max_lsb": err})
+        if err != 0:
+            fail(f"tile case {i} differs by {err} LSB")
+        errs["rgb_blur_rotate"] = max(errs["rgb_blur_rotate"], err)
+        del x, out, plain
+    # per-image angles at the sweep's budget edges, with identity images
+    x = images(torch, SHAPE_512, SEED + 70)
+    n, h, w = SHAPE_512
+    angles = cycled([-APPLY_ALL_BUDGET, APPLY_ALL_BUDGET, 0.0] + ROTATION_GRID, n)
+    taps, p = mk._params(h, w, 0.0, 0.0, x.device)[:2]
+    k1, f1, k2, f2, ident = mk._traced_params(angles, n, h, w, APPLY_ALL_BUDGET, x.device)
+    before = mk.LAUNCHES["rgb_blur_rotate_traced"]
+    out = mk.fused_blur_rotate_batched(x, 0.0, angles, max_angle_deg=APPLY_ALL_BUDGET)
+    if mk.LAUNCHES["rgb_blur_rotate_traced"] != before + 1:
+        fail("budget-edge case did not route to rgb_blur_rotate_traced")
+    err = max_lsb(torch, out, mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0, True,
+                                                       False, ident))
+    emit({"phase": "parity", "kernel": "rgb_blur_rotate_traced", "shape": [*SHAPE_512, 3],
+          "radius": 0.0, "angles": [-APPLY_ALL_BUDGET, APPLY_ALL_BUDGET],
+          "budget": APPLY_ALL_BUDGET, "zero_angle_images": int((ident != 0).sum()),
+          "max_lsb": err})
+    if err != 0:
+        fail(f"budget-edge case differs by {err} LSB")
+    errs["rgb_blur_rotate_traced"] = max(errs["rgb_blur_rotate_traced"], err)
+    del x, out
 
     for shape, seed in ((SHAPE_512, SEED + 24), (SHAPE_32, SEED + 25)):
         x = images(torch, shape, seed)
@@ -890,6 +1002,7 @@ def main() -> int:
                 fail(f"{label}: differs from the plain version by {row['max_lsb_vs_plain']} LSB")
         results.append(row)
     torch.cuda.synchronize()
+    run_launches_by_label = {row["run"]: row["launches"] for row in results}
     emit({"phase": "main_path", "runs": results, "launches": launches})
     for k, v in launches.items():
         if v <= 0:
@@ -1066,9 +1179,10 @@ def main() -> int:
                           else cycled(ROTATION_GRID, n))
                 taps, p = mk._params(h, w, radius, 0.0, x.device)[:2]
                 k1, f1, k2, f2, ident = mk._traced_params(angles, n, h, w, 25.0, x.device)
+                slopes = mk.budget_slope_bound(25.0)
             else:
                 taps, p, k1, f1, k2, f2 = mk._params(h, w, radius, ANGLE, x.device)
-                ident = False
+                ident, slopes = False, mk.slope_bound(ANGLE)
             if kernel.startswith("luma"):
                 ipb = mk._images_per_block(n, h)
                 run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, ipb)
@@ -1076,10 +1190,11 @@ def main() -> int:
                 b_ms, b_by = bound(n, h, w, 3, 3, ops_luma(p))
             else:
                 run = lambda: mk.rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, not stream,
-                                                 gray, ident)
+                                                 gray, ident, slopes=slopes)
                 plain = lambda: mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0,
                                                          not stream, gray, ident)
                 b_ms, b_by = bound(n, h, w, 3, 3, ops_rgb(p, not stream, gray, False))
+                extra = {"modes": rgb_modes(torch, mk, sh, kernel, run_launches_by_label)}
             mode = (("stream" if stream else "strict") + (" gray" if gray else "")
                     + f" r {radius}" + (" per-image angles" if traced else f" {ANGLE} deg"))
         entries.append({

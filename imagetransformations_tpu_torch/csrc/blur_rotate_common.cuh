@@ -1,5 +1,5 @@
-// Shared device helpers of the blur -> 3-shear rotation kernels
-// (luma_blur_rotate.cu, rgb_blur_rotate.cu).
+// Device helpers of the luma blur -> 3-shear rotation kernel
+// (luma_blur_rotate.cu).
 //
 // Every float add and multiply below goes through the _rn intrinsics, which
 // the compiler never contracts into FMAs: each operation rounds on its own,

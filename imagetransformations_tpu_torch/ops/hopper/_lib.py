@@ -44,10 +44,12 @@ SIGNATURES = {
     # n, h, w, fill, images_per_block, stream
     "luma_blur_rotate": {"luma_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                                               _I, _I, _I, _I, _I, _P)},
-    # x, scratch, out, taps, p, k1, f1, k2, f2, stride_h, stride_w,
-    # n, h, w, c, fill, strict, grayscale, identity, identity_stride, stream
-    "rgb_blur_rotate": {"rgb_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                                            _I, _I, _I, _I, _I, _I, _I, _P, _I, _P)},
+    # x, out, taps, p, k1, f1, k2, f2, stride_h, stride_w, n, h, w, c, fill,
+    # strict, grayscale, identity, identity_stride, tile_rows_log2,
+    # tile_cols_log2, chunk_rows, max_r1, max_c2, max_c1, smem_bytes, batch, stream
+    "rgb_blur_rotate": {"rgb_blur_rotate": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                            _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                                            _I, _I, _I, _I, _I, _I, _I, _I, _P)},
     # x, out, factors, n, h, w, c, stream
     "shear_bicubic": {"shear_bicubic": (_P, _P, _P, _I, _I, _I, _I, _P)},
     # shear_rows: x, out, shifts, shift_stride, n, h, w, c, fill, b_px,

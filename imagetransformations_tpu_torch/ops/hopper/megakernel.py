@@ -6,7 +6,11 @@ PyTorch counterpart of ``imagetransformations_tpu/ops/pallas/megakernel.py``
 kernels carry both on the card (``csrc/luma_blur_rotate.cu``,
 ``csrc/rgb_blur_rotate.cu``), which take their shifts per image with a
 stride (0 for one angle); beside each wrapper sits its plain PyTorch
-version, which repeats the kernel's arithmetic op for op.
+version, which repeats the kernel's arithmetic op for op. The rgb kernel
+is one launch a call: a block an output tile, which stages the source
+footprint of its tile in shared memory; the host sizes that from a bound
+on the shift slopes (``_tiling``; the footprint rule is mirrored in
+``tile_footprint`` and ``footprint_bound``).
 
 A wrapper looks at the tensor it is given: on the CPU it runs the plain
 version, on a CUDA device it launches the kernel (or raises). It never
@@ -25,6 +29,8 @@ Semantics (oracles in the JAX package):
 from __future__ import annotations
 
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,8 +42,9 @@ from imagetransformations_tpu_torch.ops.hopper.shear import _paeth_params, _row_
 from imagetransformations_tpu_torch.ops.stencil import gaussian_blur
 
 #: kernel launches, by kernel (the package-wide counters of ``_lib``): each
-#: wrapper call that launches its kernel pair (blur launch + shear launch)
-#: adds one, under "*_traced" when the shifts are per image.
+#: wrapper call that launches its kernel (the luma kernel: its blur launch
+#: and shear launch) adds one, under "*_traced" when the shifts are per
+#: image.
 LAUNCHES = _lib.LAUNCHES
 
 _LUMA_WEIGHTS = (19595, 38470, 7471)  # PIL L24 weights of R, G, B
@@ -108,6 +115,204 @@ def _images_per_block(n: int, h: int) -> int:
     return 2 if h < 128 and n % 2 == 0 else 1
 
 
+# ------------------------------------------------- rgb kernel's tile footprint
+#
+# csrc/rgb_blur_rotate.cu runs a block an output tile and stages in shared
+# memory the part of the source the tile needs. The functions below mirror
+# its footprint rule and its shared-memory layout on the host: the host
+# sizes the layout from a bound on the shift slopes (no read from the
+# device), the kernel checks each footprint against it.
+
+_SM_SMEM = 233472  # shared memory of an H100 SM (228 KB, 1 KB of it reserved a block)
+_SMEM_MAX = 232448  # the most a block may have
+# (rows, columns) of an output tile, both powers of two
+_TILE_SHAPES = ((32, 64), (32, 32), (16, 64), (16, 32), (8, 64), (8, 32), (4, 32), (2, 32),
+                (1, 32), (1, 16), (1, 8), (1, 4))
+_CHUNK_ROWS = (64, 32, 16, 8, 4, 2, 1)  # tried, largest first, when one chunk does not fit
+_BLOCK_WORK = 20000  # a block's fixed cost in the tiling's work units
+_MAX_BATCH = 8  # images whose footprints a block takes at once (a warp each)
+_BATCH_BLOCKS = 1600  # blocks a launch aims for (about four waves of 3 an SM on 132 SMs)
+
+
+class Tiling(NamedTuple):
+    """A launch's tiling: tiles of 2**tile_rows_log2 x 2**tile_cols_log2
+    pixels, R1 cut into chunks of chunk_rows, footprints of at most max_r1
+    rows of S1, max_c2 columns of S2 and max_c1 columns of B a chunk."""
+
+    tile_rows_log2: int
+    tile_cols_log2: int
+    chunk_rows: int
+    max_r1: int
+    max_c2: int
+    max_c1: int
+    smem: int
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _smem_bytes(p: int, c: int, ty_log2: int, tx_log2: int, rc: int, max_r1: int,
+                max_c2: int, max_c1: int) -> int:
+    """Shared memory of a block: ``make_layout`` of csrc/rgb_blur_rotate.cu."""
+    ty, tx = 1 << ty_log2, 1 << tx_log2
+    sp, fp = _up(46 + (max_c1 + 2 * p) * c, 16), _up(max_c1 + 2 * p, 4)
+    pitch2 = (max_c2 * c) | 1  # S1 and S2 rows, channels interleaved
+    total = _up((rc + 2 * p) * sp, 16)
+    total += _up(4 * max(rc * max_c1 * c if p else 0, ty * pitch2), 16)
+    total += _up(4 * (rc * fp + 8), 16) if p else 0
+    # S1, then the output tile
+    total += _up(max(4 * max_r1 * pitch2, ty * _up(46 + tx * c, 16)), 16)
+    total += _up(4 * (2 * p + 1), 16)
+    return total + _up(4 * _MAX_BATCH * (5 + 2 * -(-max_r1 // rc)), 16)
+
+
+def _slope_spread(slope: float):
+    """Bound on max k - min k over n consecutive entries of k = floor(s)
+    for shifts s with |s[i+1] - s[i]| <= slope, plus 1 for the device's
+    f32 tan / sin against the host's f64."""
+    def spread(count: int) -> int:
+        if count <= 1:
+            return 0
+        d = slope * (count - 1) * (1.0 + 1e-6)
+        return 1 << 30 if not math.isfinite(d) or d > 1 << 29 else int(math.floor(d)) + 2
+    return spread
+
+
+def _table_spread(k: torch.Tensor):
+    """max k - min k over n consecutive entries of the tables k [..., L]
+    (read from the device once)."""
+    table = k.detach().cpu().to(torch.int64).reshape(-1, k.shape[-1]).numpy()
+
+    @functools.lru_cache(maxsize=None)
+    def spread(count: int) -> int:
+        count = min(count, table.shape[-1])
+        if count <= 1:
+            return 0
+        win = np.lib.stride_tricks.sliding_window_view(table, count, axis=-1)
+        return int((win.max(-1) - win.min(-1)).max())
+    return spread
+
+
+def footprint_bound(spread1, spread2, h: int, w: int, ty: int, tx: int,
+                    rc: int | None) -> tuple[int, int, int]:
+    """(max_r1, max_c2, max_c1): the most rows of S1, columns of S2 and
+    columns of B a chunk (each with its fill rows or columns at -1 and h or
+    w) that a tile of ty x tx pixels (cut to the canvas) can need, given
+    spread1(n) / spread2(n), bounds on the spread of k1 over n rows / k2
+    over n columns; chunks of rc rows (None: one chunk). Identity images
+    need the tile itself: max_r1 and max_c1 cover it."""
+    nty, ntx = min(ty, h), min(tx, w)
+    c2 = min(ntx + spread1(nty) + 1, w + 2)
+    r1 = min(nty + spread2(min(c2, w)) + 1, h + 2)
+    rows = min(r1, h) if rc is None else min(rc, r1, h)
+    c1 = min(min(c2, w) + spread1(rows) + 1, w + 2)
+    return max(r1, nty), c2, max(c1, ntx)
+
+
+def _choose_tiling(spread1, spread2, h: int, w: int, p: int, c: int) -> Tiling:
+    """The tiling of least estimated cost a pixel; ValueError if no layout
+    fits a block's shared memory."""
+    best = None
+    for ty, tx in _TILE_SHAPES:
+        for rc in (None, *_CHUNK_ROWS):
+            mr1, mc2, mc1 = footprint_bound(spread1, spread2, h, w, ty, tx, rc)
+            rc_eff = mr1 if rc is None else min(rc, mr1)
+            tyl, txl = ty.bit_length() - 1, tx.bit_length() - 1
+            smem = _smem_bytes(p, c, tyl, txl, rc_eff, mr1, mc2, mc1)
+            if smem > _SMEM_MAX:
+                continue
+            # work a pixel: staging (~3 a value), the two blur passes
+            # (3p + 1), the three lerps (~8), a block's fixed cost (its
+            # barriers and reductions) and a chunk's; 30% more for each
+            # block short of three on an SM (four at p = 0: the kernel's
+            # register budget)
+            nty, ntx = min(ty, h), min(tx, w)
+            chunks = -(-mr1 // rc_eff)
+            blur = (rc_eff * (mc1 + 2 * p) + rc_eff * mc1) * (3 * p + 1) if p else 0
+            work = chunks * ((rc_eff + 2 * p) * (mc1 + 2 * p) * 3 + blur + _BLOCK_WORK)
+            work += (mr1 * mc2 + nty * mc2 + nty * ntx) * 8
+            most = 4 if p == 0 else 3
+            blocks = min(most, _SM_SMEM // (smem + 1024))
+            key = (work / (nty * ntx) * (1.0 + 0.3 * (most - blocks)), ty * tx)
+            if best is None or key < best[0]:
+                best = (key, Tiling(tyl, txl, rc_eff, mr1, mc2, mc1, smem))
+            break  # smaller chunks of this tile only cost more
+    if best is None:
+        raise ValueError(f"rgb_blur_rotate: no tile's footprint fits shared memory at "
+                         f"{h}x{w}, p {p}, c {c}")
+    return best[1]
+
+
+def _batch(n: int, h: int, w: int, t: Tiling) -> int:
+    """Images a block takes footprints for at once: as many as keep about
+    _BATCH_BLOCKS blocks, 1 to _MAX_BATCH."""
+    tiles = -(-h // (1 << t.tile_rows_log2)) * -(-w // (1 << t.tile_cols_log2))
+    return max(1, min(_MAX_BATCH, n * tiles // _BATCH_BLOCKS))
+
+
+def slope_bound(angle_deg: float) -> tuple[float, float]:
+    """(|a|, |b|) of one rotation angle: the per-row slope |tan(t/2)| of
+    shears 1 and 3 and the per-column slope |sin(t)| of shear 2."""
+    t = math.radians(angle_deg)
+    return abs(math.tan(t / 2.0)), abs(math.sin(t))
+
+
+def budget_slope_bound(max_angle_deg: float) -> tuple[float, float]:
+    """(|a|, |b|) bounds over every angle in [-max, max]."""
+    m = min(abs(float(max_angle_deg)), 180.0)
+    a = math.inf if m >= 180.0 else math.tan(math.radians(m) / 2.0)
+    return a, (math.sin(math.radians(m)) if m < 90.0 else 1.0)
+
+
+@functools.lru_cache(maxsize=256)
+def _tiling(h: int, w: int, p: int, c: int, slopes: tuple[float, float]) -> Tiling:
+    """The kernel's tiling for shift tables whose slopes are at most
+    ``slopes`` (|a| of k1, |b| of k2): host arithmetic alone."""
+    return _choose_tiling(_slope_spread(slopes[0]), _slope_spread(slopes[1]), h, w, p, c)
+
+
+def _clamp(v: int, lo: int, hi: int) -> int:
+    return min(max(v, lo), hi)
+
+
+def tile_footprint(k1, k2, h: int, w: int, y0: int, x0: int, ty: int, tx: int, rc: int,
+                   identity: bool = False) -> dict:
+    """The kernel's footprint rule for the tile at (y0, x0) of one image's
+    tables k1 [h], k2 [w] (numpy ints): {"c2": (lo, hi), "r1": (lo, hi),
+    "chunks": [(row lo, row hi, B column lo, B column hi), ...]}. C2, R1 and
+    each chunk's C1 are clamped to [-1, w] / [-1, h], their fill positions
+    (hi < lo: not read); the chunks split R1 on the canvas into rc rows. The blur
+    of a chunk reads source rows row lo - p .. row hi + p and columns of C1
+    on the canvas +- p, reflected."""
+    k1 = np.asarray(k1, np.int64)
+    k2 = np.asarray(k2, np.int64)
+    y1, x1 = min(y0 + ty, h) - 1, min(x0 + tx, w) - 1
+    cl, ch = 0, -1
+    if identity:
+        c2, r1 = (0, -1), (y0, y1)
+    else:
+        ks = k1[y0:y1 + 1]
+        c2 = (_clamp(x0 + int(ks.min()), -1, w), _clamp(x1 + int(ks.max()) + 1, -1, w))
+        cl, ch = max(c2[0], 0), min(c2[1], w - 1)
+        r1 = (0, -1)
+        if cl <= ch:
+            kc = k2[cl:ch + 1]
+            r1 = (_clamp(y0 + int(kc.min()), -1, h), _clamp(y1 + int(kc.max()) + 1, -1, h))
+    chunks = []
+    for ra in range(max(r1[0], 0), min(r1[1], h - 1) + 1, rc):
+        rb = min(ra + rc - 1, r1[1], h - 1)
+        if identity:
+            chunks.append((ra, rb, x0, x1))
+        elif cl <= ch:
+            kr = k1[ra:rb + 1]
+            chunks.append((ra, rb, _clamp(cl + int(kr.min()), -1, w),
+                           _clamp(ch + int(kr.max()) + 1, -1, w)))
+        else:
+            chunks.append((ra, rb, 0, -1))
+    return {"c2": c2, "r1": r1, "chunks": chunks}
+
+
 # ------------------------------------------------------------ plain versions
 
 
@@ -149,23 +354,32 @@ def _trunc_u8(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.trunc(v), 0.0, 255.0)
 
 
+def _shear_x(v, k1, f1, fill: float, strict: bool) -> torch.Tensor:
+    """Shears 1 and 3 of f32 planes v [n, C, h, w]: x shifted by row, k1/f1
+    [h] or [n, h]; fill off the canvas; u8 trunc if strict."""
+    h, w = v.shape[-2:]
+    k1, f1 = k1.reshape(-1, 1, h, 1), f1.reshape(-1, 1, h, 1)
+    xs = torch.arange(w, device=v.device).view(1, 1, 1, w) + k1
+    out = _lerp(_take(v, xs, 3, fill), _take(v, xs + 1, 3, fill), f1)
+    return _trunc_u8(out) if strict else out
+
+
+def _shear_y(v, k2, f2, fill: float, strict: bool) -> torch.Tensor:
+    """Shear 2: y shifted by column, k2/f2 [w] or [n, w]; as ``_shear_x``."""
+    h, w = v.shape[-2:]
+    k2, f2 = k2.reshape(-1, 1, 1, w), f2.reshape(-1, 1, 1, w)
+    ys = torch.arange(h, device=v.device).view(1, 1, h, 1) + k2
+    out = _lerp(_take(v, ys, 2, fill), _take(v, ys + 1, 2, fill), f2)
+    return _trunc_u8(out) if strict else out
+
+
 def _shears(v, k1, f1, k2, f2, fill: float, strict: bool) -> torch.Tensor:
     """The three Paeth shears of f32 planes v [n, C, h, w]: x by row, y by
     column, x by row; fill off the canvas; u8 trunc after each if strict.
     k1/f1 are [h] or [n, h], k2/f2 are [w] or [n, w]."""
-    h, w = v.shape[-2:]
-    k1, f1 = k1.reshape(-1, 1, h, 1), f1.reshape(-1, 1, h, 1)
-    k2, f2 = k2.reshape(-1, 1, 1, w), f2.reshape(-1, 1, 1, w)
-    xs = torch.arange(w, device=v.device).view(1, 1, 1, w) + k1
-    ys = torch.arange(h, device=v.device).view(1, 1, h, 1) + k2
-
-    def shear(v, idx, f, dim):
-        out = _lerp(_take(v, idx, dim, fill), _take(v, idx + 1, dim, fill), f)
-        return _trunc_u8(out) if strict else out
-
-    v = shear(v, xs, f1, 3)
-    v = shear(v, ys, f2, 2)
-    return shear(v, xs, f1, 3)
+    v = _shear_x(v, k1, f1, fill, strict)
+    v = _shear_y(v, k2, f2, fill, strict)
+    return _shear_x(v, k1, f1, fill, strict)
 
 
 def _replicate3(q: torch.Tensor) -> torch.Tensor:
@@ -272,11 +486,16 @@ def luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0,
 
 
 def rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, strict: bool = False,
-                    grayscale: bool = False, identity=False) -> torch.Tensor:
+                    grayscale: bool = False, identity=False, *, slopes=None) -> torch.Tensor:
     """Per-channel blur -> rotation (-> PIL grayscale): NHWC u8 -> NHWC u8.
     ``identity``: one bool for the batch, or i32 flags [n] (1: angle 0).
 
-    On CUDA: ``csrc/rgb_blur_rotate.cu``; on the CPU: the plain version."""
+    On CUDA: ``csrc/rgb_blur_rotate.cu``, one launch; on the CPU: the plain
+    version. ``slopes`` = (|a|, |b|) bounds the tables' per-row and
+    per-column shift slopes (``slope_bound``, ``budget_slope_bound``); the
+    shared memory is sized from it on the host. Without it the call reads
+    the tables from the card to size it, which waits for the work queued
+    before it: the entry points always pass it."""
     if x.device.type == "cpu":
         return rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill, strict,
                                      grayscale, identity)
@@ -284,6 +503,10 @@ def rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, strict: bool = Fa
     n, h, w, c = x.shape
     if grayscale and c != 3:
         raise ValueError("grayscale needs 3 channels")
+    if p > min(h, w) - 1:
+        raise ValueError(f"blur half-width {p} needs images of at least {p + 1} pixels a side")
+    if not 0 <= int(fill) <= 255:
+        raise ValueError(f"fill must be a u8 value, got {fill}")
     sh, sw = _shift_strides(k1, k2, n)
     if isinstance(identity, bool):
         ident, ident_stride = _flag(identity, x.device), 0
@@ -293,16 +516,21 @@ def rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, strict: bool = Fa
                 or not ident.is_contiguous()):
             raise ValueError("identity flags must be a contiguous i32 [n] tensor on the "
                              "image's device")
+    if slopes is None:
+        t = _choose_tiling(_table_spread(k1), _table_spread(k2), h, w, p, c)
+    else:
+        t = _tiling(h, w, p, c, (float(slopes[0]), float(slopes[1])))
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
     name = "rgb_blur_rotate"
     lib = _lib.load(name)
     with torch.cuda.device(x.device):
-        scratch = torch.empty((n, c, h, w), dtype=torch.float32, device=x.device)
-        out = torch.empty_like(x)
         err = lib.rgb_blur_rotate(
-            x.data_ptr(), scratch.data_ptr(), out.data_ptr(), taps.data_ptr(), p,
+            x.data_ptr(), out.data_ptr(), taps.data_ptr(), p,
             k1.data_ptr(), f1.data_ptr(), k2.data_ptr(), f2.data_ptr(), sh, sw,
             n, h, w, c, int(fill), int(strict), int(grayscale), ident.data_ptr(),
-            ident_stride, torch.cuda.current_stream(x.device).cuda_stream,
+            ident_stride, *t, _batch(n, h, w, t), torch.cuda.current_stream(x.device).cuda_stream,
         )
     _lib.check(name, err)
     LAUNCHES[name + "_traced" if sh else name] += 1
@@ -327,10 +555,12 @@ def fused_blur_rotate_image(
     rotate_3shear (-> grayscale), the reference's image-at-a-time semantics.
     ``stream=True``: f32 streaming with ONE final quantization (the fast-mode
     chain contract; oracle fast_warp.fused_stream_chain). Any angle: the
-    kernels gather with bounds checks, as the JAX kernels size their pads
-    from the shifts. Images smaller than the blur window + 2 are blurred
-    first by ``gaussian_blur`` (u8, rint; the ``blur_separable`` kernel on
-    the card), then rotated at radius 0, as the JAX function does.
+    rgb kernel's tiles and their stage are sized from the angle's shift
+    slopes, as the JAX kernels size their pads from the shifts; the luma
+    kernel gathers with bounds checks. Images smaller than the blur window
+    + 2 are blurred first by ``gaussian_blur`` (u8, rint; the
+    ``blur_separable`` kernel on the card), then rotated at radius 0, as
+    the JAX function does.
     """
     if not isinstance(img, torch.Tensor) or img.ndim != 4 or img.dtype != torch.uint8:
         raise ValueError("expected an NHWC uint8 tensor")
@@ -347,7 +577,8 @@ def fused_blur_rotate_image(
         return luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill,
                                 images_per_block=_images_per_block(n, h))
     return rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, strict=not stream,
-                           grayscale=grayscale_out, identity=angle_deg == 0.0)
+                           grayscale=grayscale_out, identity=angle_deg == 0.0,
+                           slopes=slope_bound(angle_deg))
 
 
 def fused_blur_rotate_batched(
@@ -402,4 +633,5 @@ def fused_blur_rotate_batched(
         return luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill,
                                 images_per_block=_images_per_block(n, h))
     return rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, strict=not stream,
-                           grayscale=grayscale_out, identity=ident)
+                           grayscale=grayscale_out, identity=ident,
+                           slopes=budget_slope_bound(max_angle_deg))
