@@ -14,14 +14,18 @@ fast scale/shear and PIL rotation; ``blur_separable``, ``rotate_3shear``,
 with rotate_3shear's middle pass on the column kernel (no transposes),
 with the sweep's per-image blur on ``blur_separable_batched``, with the
 rgb blur-rotate kernel's tiles held at large angles, 1 and 4 channels and
-the sweep's budget edge,
+the sweep's budget edge, with the luma kernel's row bands held at large
+angles, r 5, fill 255 and in another geometry (column segments, or one
+band a block),
 each with the launch counters reset just before it and read just after,
 times each sweep type, and times each kernel beside its bound and, where
 one exists, a PyTorch call that computes the same function or samples the
 same way: ``ms`` a wrapper call (CUDA events), ``device_ms`` its kernels'
 device time alone (torch.profiler); the rgb kernel's entries add rows
 (``modes``) for stream mode, strict at radius 0 beside ``rotate_3shear``
-and the sweep's use at 4096x32x32. Prints one JSON line per phase; the
+and the sweep's use at 4096x32x32; phase ``geometry`` times the luma
+kernel's band rows and images a block at 4096x32x32 and 32x512x512.
+Prints one JSON line per phase; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
 Imports nothing of JAX.
@@ -647,6 +651,14 @@ def main() -> int:
         ("rgb_blur_rotate", SHAPE_512, BLUR_RADIUS, ANGLE, 0, True, False),
         ("rgb_blur_rotate", SHAPE_512, BLUR_RADIUS, 0.0, 0, False, True),
         ("rgb_blur_rotate", SHAPE_224, 0.0, -22.5, 128, False, False),
+        # the luma kernel beyond 45 degrees (shift windows of whole rows near
+        # 180), at r 5 (p 15: the ring of X rows) and fill 255, and the
+        # blur-only gray chain (r 1.5, angle 0); after the cases above, whose
+        # seeds (SEED + index) the main-path runs share
+        ("luma_blur_rotate", SHAPE_512, BLUR_RADIUS, 60.0, 0, True, True),
+        ("luma_blur_rotate", SHAPE_512, 5.0, 135.0, 255, True, True),
+        ("luma_blur_rotate", SHAPE_512, BLUR_RADIUS, 170.0, 255, True, True),
+        ("luma_blur_rotate", SHAPE_512, BLUR_RADIUS, 0.0, 0, True, True),
     ]
     errs = {k: 0 for k in KERNELS}
     refs = {}
@@ -669,10 +681,17 @@ def main() -> int:
         row = {"phase": "parity", "kernel": kernel, "shape": [*shape, 3], "radius": radius,
                "angle": angle, "fill": fill, "grayscale": gray, "stream": stream,
                "max_lsb": err}
-        if kernel == "luma_blur_rotate_packed":
-            unpacked = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, images_per_block=1)
-            row["max_lsb_vs_unpacked"] = max_lsb(torch, out, unpacked)
-            err = max(err, row["max_lsb_vs_unpacked"])
+        if kernel.startswith("luma"):
+            # other geometries give the same bytes: one image a block for
+            # the packed route, column segments (sub-bands where the shifts
+            # spread) for whole rows
+            g = mk._luma_geometry(h, w, p)
+            other = (g._replace(groups=1) if g.groups > 1 else
+                     g._replace(seg_w=128, win=128 + 2, threads=33, groups=1))
+            row["geometry"], row["other_geometry"] = list(g), list(other)
+            alt = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, geometry=other)
+            row["max_lsb_vs_other_geometry"] = max_lsb(torch, out, alt)
+            err = max(err, row["max_lsb_vs_other_geometry"])
         emit(row)
         if err != 0:
             fail(f"parity case {i} ({kernel}) differs by {err} LSB")
@@ -711,12 +730,13 @@ def main() -> int:
                "zero_angle_images": int((ident != 0).sum()), "grayscale": gray,
                "stream": stream}
         if kernel.startswith("luma"):
-            ipb = mk._images_per_block(n, h)
-            kern = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, ipb)
+            g = mk._luma_geometry(h, w, p)
+            kern = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0)
             plain = mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0)
-            row["images_per_block"] = ipb
-            if ipb > 1:
-                one = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, images_per_block=1)
+            row["geometry"] = list(g)
+            if g.groups > 1:
+                one = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0,
+                                          geometry=g._replace(groups=1))
                 row["max_lsb_vs_one_image_a_block"] = max_lsb(torch, kern, one)
         else:
             kern = mk.rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, not stream, gray, ident)
@@ -1184,8 +1204,7 @@ def main() -> int:
                 taps, p, k1, f1, k2, f2 = mk._params(h, w, radius, ANGLE, x.device)
                 ident, slopes = False, mk.slope_bound(ANGLE)
             if kernel.startswith("luma"):
-                ipb = mk._images_per_block(n, h)
-                run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, ipb)
+                run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0)
                 plain = lambda: mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0)
                 b_ms, b_by = bound(n, h, w, 3, 3, ops_luma(p))
             else:
@@ -1208,26 +1227,36 @@ def main() -> int:
         })
         del x, run, plain
 
-    # ---- geometry: the luma kernel at 4096x32x32, by images a block ---------
-    # Two rounds, the second in reverse order, so warm-up favours neither end.
-    n, h, w = SHAPE_32
-    x = images(torch, SHAPE_32, SEED + 101)
-    taps, p, k1, f1, k2, f2 = mk._params(h, w, BLUR_RADIUS, ANGLE, x.device)
-    geometries = (1, 2, 4, 8, 16)
-    one = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, images_per_block=1)
-    rounds = []
-    for order in (geometries, geometries[::-1]):
-        ms = {}
-        for ipb in order:
-            run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, ipb)
-            if max_lsb(torch, run(), one) != 0:
-                fail(f"{ipb} images a block differ from one image a block")
-            ms[ipb] = time_ms(torch, run, 20)
-        rounds.append(ms)
-    emit({"phase": "geometry", "kernel": "luma_blur_rotate", "shape": [*SHAPE_32, 3],
-          "ms_by_images_per_block": [{str(k): r[k] for k in geometries} for r in rounds],
-          "routed": mk._images_per_block(n, h)})
-    del x, one
+    # ---- geometry: the luma kernel's band rows and images a block ----------
+    # ms of each geometry at 4096x32x32 and 32x512x512 (byte-equal to the
+    # host's choice; CUDA events around 20 calls: torch.profiler recorded no
+    # device time after about forty sessions in one process), two rounds, the
+    # second in reverse order, so warm-up favours neither end.
+    for shape, variants in (
+            (SHAPE_32, lambda g: [g, g._replace(groups=g.groups // 2), g._replace(groups=1),
+                                  g._replace(rows_a=32), g._replace(rows_b=8),
+                                  g._replace(rows_b=16)]),
+            (SHAPE_512, lambda g: [g, g._replace(rows_a=16), g._replace(rows_a=64),
+                                   g._replace(rows_b=4), g._replace(rows_b=16)])):
+        n, h, w = shape
+        x = images(torch, shape, SEED + 101)
+        taps, p, k1, f1, k2, f2 = mk._params(h, w, BLUR_RADIUS, ANGLE, x.device)
+        routed = mk._luma_geometry(h, w, p)
+        geometries = variants(routed)
+        ref = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0)
+        rounds = []
+        for order in (geometries, geometries[::-1]):
+            ms = {}
+            for g in order:
+                run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, geometry=g)
+                if max_lsb(torch, run(), ref) != 0:
+                    fail(f"geometry {g} differs from the host's choice {routed}")
+                ms[g] = time_ms(torch, run, 20)
+            rounds.append(ms)
+        emit({"phase": "geometry", "kernel": "luma_blur_rotate", "shape": [*shape, 3],
+              "fields": list(mk.LumaGeometry._fields), "routed": list(routed),
+              "ms_by_geometry": [[list(g), r[g]] for g in geometries for r in rounds]})
+        del x, ref
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

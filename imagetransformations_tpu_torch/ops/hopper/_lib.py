@@ -40,10 +40,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points of each library, by the library's name (its source file):
 #: {entry point: argtypes}
 SIGNATURES = {
-    # x, scratch, out, taps, p, k1, f1, k2, f2, stride_h, stride_w,
-    # n, h, w, fill, images_per_block, stream
+    # x, s1 (the f32 plane between the launches), out, taps, p, k1, f1, k2,
+    # f2, stride_h, stride_w, n, h, w, fill, rows_a, rows_b, seg_w, win,
+    # threads, groups, stream
     "luma_blur_rotate": {"luma_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                                              _I, _I, _I, _I, _I, _P)},
+                                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)},
     # x, out, taps, p, k1, f1, k2, f2, stride_h, stride_w, n, h, w, c, fill,
     # strict, grayscale, identity, identity_stride, tile_rows_log2,
     # tile_cols_log2, chunk_rows, max_r1, max_c2, max_c1, smem_bytes, batch, stream
@@ -68,7 +69,7 @@ SIGNATURES = {
 #: kernel launches, by kernel: each wrapper call that launches its CUDA
 #: kernel (or kernel pair) adds one. One dict for every wrapper module;
 #: ``megakernel.LAUNCHES`` is the same object. The luma kernel counts under
-#: "luma_blur_rotate_packed" when it runs many images a block, and the
+#: "luma_blur_rotate_packed" below 128 rows (whole images, several a block), and the
 #: blur-rotate kernels under "*_traced" when their shifts are per image
 #: (the counterparts of the per-image-angle Pallas kernels). The library
 #: shear_rows counts under the Pallas entry point it carries:

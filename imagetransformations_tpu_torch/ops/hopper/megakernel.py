@@ -10,7 +10,11 @@ version, which repeats the kernel's arithmetic op for op. The rgb kernel
 is one launch a call: a block an output tile, which stages the source
 footprint of its tile in shared memory; the host sizes that from a bound
 on the shift slopes (``_tiling``; the footprint rule is mirrored in
-``tile_footprint`` and ``footprint_bound``).
+``tile_footprint`` and ``footprint_bound``). The luma kernel is two
+streaming launches over bands of whole rows with one f32 plane between
+them; the host picks their geometry from the shapes alone
+(``_luma_geometry``; the kernel's window rule is mirrored in
+``luma_windows``).
 
 A wrapper looks at the tensor it is given: on the CPU it runs the plain
 version, on a CUDA device it launches the kernel (or raises). It never
@@ -42,9 +46,9 @@ from imagetransformations_tpu_torch.ops.hopper.shear import _paeth_params, _row_
 from imagetransformations_tpu_torch.ops.stencil import gaussian_blur
 
 #: kernel launches, by kernel (the package-wide counters of ``_lib``): each
-#: wrapper call that launches its kernel (the luma kernel: its blur launch
-#: and shear launch) adds one, under "*_traced" when the shifts are per
-#: image.
+#: wrapper call that launches its kernel (the luma kernel: its row launch
+#: and column launch) adds one, under "*_traced" when the shifts are per
+#: image and the luma kernel under "luma_blur_rotate_packed" below 128 rows.
 LAUNCHES = _lib.LAUNCHES
 
 _LUMA_WEIGHTS = (19595, 38470, 7471)  # PIL L24 weights of R, G, B
@@ -107,12 +111,97 @@ def _traced_params(angles, n: int, h: int, w: int, max_angle_deg: float,
             (t == 0.0).to(torch.int32))
 
 
-def _images_per_block(n: int, h: int) -> int:
-    """Launch geometry of the luma kernel: an even batch of images under 128
-    rows (CIFAR 32x32), the batches the JAX package routes to its packed
-    kernel, runs 2 images a block. Two measured fastest of 1, 2, 4, 8 and 16
-    at 4096x32x32 on the H100 (chip_smoke.py, phase geometry)."""
-    return 2 if h < 128 and n % 2 == 0 else 1
+# ------------------------------------------------------- luma kernel's bands
+#
+# csrc/luma_blur_rotate.cu runs two launches over units of (image, band of
+# rows, column segment): the row launch streams a band's X rows and writes
+# S1, the column launch reads S1 and writes the output. The functions below
+# pick the geometry and mirror the kernels' shared-memory layout and their
+# window rule on the host.
+
+_LUMA_COLS = 4  # blur columns a thread of the row launch owns (kCols)
+_LUMA_THREADS = 512  # threads a block, at most (the kernels' launch bound)
+_LUMA_BLOCK = 128  # threads a block of several groups aims at
+_LUMA_SMEM = 96 * 1024  # shared memory a block aims at: two blocks an SM at least
+_LUMA_TEMPLATED_P = 4  # the half-width with a register window; others use a ring
+_LUMA_STAGE = 7  # source rows the row launch has in flight (kStage)
+_PACKED_ROWS = 128  # below this many rows, the JAX package's packed kernel (#2)
+#: band rows of the row and column launches, below 128 rows and from 128 on
+#: (chip_smoke.py, phase geometry, on the H100)
+_BAND_ROWS = {True: (16, 4), False: (32, 8)}
+
+
+class LumaGeometry(NamedTuple):
+    """Launch geometry of the luma kernel: band rows of the row launch and
+    of the column launch, output columns a unit (w: whole rows), columns a
+    window buffer holds (w + 2 with whole rows), threads a group (each of
+    the row launch's owns ``_LUMA_COLS`` window columns) and groups a block
+    (more than one only with whole rows)."""
+
+    rows_a: int
+    rows_b: int
+    seg_w: int
+    win: int
+    threads: int
+    groups: int
+
+
+def _luma_smem(g: LumaGeometry, h: int, w: int, p: int) -> tuple[int, int]:
+    """Shared bytes of a block of the row launch and of the column launch
+    (the layout of ``launch`` in csrc/luma_blur_rotate.cu)."""
+    k, cols = 2 * p + 1, g.threads * _LUMA_COLS
+    ra, rb, seg = min(g.rows_a, h), min(g.rows_b, h), min(g.seg_w, w)
+    wp, lw, slot = _up(g.win + 4, 4), _up(cols + 2 * p, 4), _up(3 * (cols + 2 * p) + 32, 16)
+    ring = 0 if p == _LUMA_TEMPLATED_P else k * wp
+    rows = 2 * _up(ra, 4) + 2 * lw + 2 * wp + (_LUMA_STAGE + 1) * slot // 4 + ring
+    col = 2 * _up(rb, 4) + rb * _up(g.win, 4) + rb * _up(3 * seg + 16, 16) // 4
+    return 4 * (_up(k, 4) + g.groups * rows), 4 * g.groups * col
+
+
+@functools.lru_cache(maxsize=256)
+def _luma_geometry(h: int, w: int, p: int) -> LumaGeometry:
+    """The luma kernel's geometry, from the shapes alone: bands of
+    ``_BAND_ROWS`` rows; whole rows wherever the buffers fit, with as many
+    groups a block as ``_LUMA_BLOCK`` threads hold (several small images a
+    block: the JAX package's packed route); else column segments, halved
+    until they fit (a window of twice the segment, so moderate angles need
+    one sub-band). ValueError if no segment fits the card's shared memory."""
+    rows_a, rows_b = _BAND_ROWS[h < _PACKED_ROWS]
+    for limit in (_LUMA_SMEM, _SMEM_MAX):
+        seg = w
+        while seg >= 4:
+            whole = seg >= w
+            win = w + 2 if whole else 2 * seg + 2
+            threads = -(-min(win, w) // _LUMA_COLS)
+            g = LumaGeometry(rows_a, rows_b, seg, win, threads,
+                             max(1, _LUMA_BLOCK // threads) if whole else 1)
+            while g.groups > 1 and max(_luma_smem(g, h, w, p)) > limit:
+                g = g._replace(groups=g.groups // 2)
+            if threads <= _LUMA_THREADS and max(_luma_smem(g, h, w, p)) <= limit:
+                return g
+            seg = 1 << ((min(seg, w) - 1).bit_length() - 1)  # the power of two below
+    raise ValueError(f"luma_blur_rotate: no geometry fits shared memory at {h}x{w}, p {p}")
+
+
+def luma_windows(k1_band, x0: int, x1: int, w: int, win: int) -> list:
+    """The kernels' window rule (``next_window``) for one band: its rows
+    cut into sub-bands [(ya, yb, c0, c1), ...], each the most rows from ya
+    on whose window [x0 + min k1, x1 + max k1] (clamped to [-1, w]; -1 and
+    w stand for fill) fits ``win`` columns."""
+    k1_band = [int(k) for k in k1_band]
+    out, ya = [], 0
+    while ya < len(k1_band):
+        kmin = kmax = k1_band[ya]
+        yb, c0, c1 = ya + 1, _clamp(x0 + kmin, -1, w), _clamp(x1 + kmax, -1, w)
+        for y in range(ya + 1, len(k1_band)):
+            lo, hi = min(kmin, k1_band[y]), max(kmax, k1_band[y])
+            d0, d1 = _clamp(x0 + lo, -1, w), _clamp(x1 + hi, -1, w)
+            if d1 - d0 + 1 > win:
+                break
+            kmin, kmax, yb, c0, c1 = lo, hi, y + 1, d0, d1
+        out.append((ya, yb, c0, c1))
+        ya = yb
+    return out
 
 
 # ------------------------------------------------- rgb kernel's tile footprint
@@ -453,35 +542,42 @@ def _shift_strides(k1: torch.Tensor, k2: torch.Tensor, n: int) -> tuple[int, int
     raise ValueError("shifts must be [h] and [w], or [n, h] and [n, w]")
 
 
-def luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0,
-                     images_per_block: int = 1) -> torch.Tensor:
+def luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, *,
+                     geometry=None) -> torch.Tensor:
     """Grayscale-first blur -> rotation: NHWC u8 RGB -> NHWC u8 (luma x 3).
 
-    On CUDA: ``csrc/luma_blur_rotate.cu``, ``images_per_block`` images
-    looped inside each block; on the CPU: the plain version."""
+    On CUDA: ``csrc/luma_blur_rotate.cu``, two launches with an f32 plane
+    between them, in ``geometry`` (a ``LumaGeometry``; None: the host's
+    ``_luma_geometry``); on the CPU: the plain version."""
     if x.device.type == "cpu":
         return luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill)
     _check_cuda(x, taps, k1, f1, k2, f2)
     n, h, w, c = x.shape
     if c != 3:
         raise ValueError("luma_blur_rotate needs 3 channels")
+    if p > min(h, w) - 1:
+        raise ValueError(f"blur half-width {p} needs images of at least {p + 1} pixels a side")
+    if not 0 <= int(fill) <= 255:
+        raise ValueError(f"fill must be a u8 value, got {fill}")
     sh, sw = _shift_strides(k1, k2, n)
+    g = _luma_geometry(h, w, p) if geometry is None else LumaGeometry(*geometry)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
     name = "luma_blur_rotate"
     lib = _lib.load(name)
     with torch.cuda.device(x.device):
-        scratch = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
-        out = torch.empty_like(x)
+        s1 = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
         err = lib.luma_blur_rotate(
-            x.data_ptr(), scratch.data_ptr(), out.data_ptr(), taps.data_ptr(), p,
+            x.data_ptr(), s1.data_ptr(), out.data_ptr(), taps.data_ptr(), p,
             k1.data_ptr(), f1.data_ptr(), k2.data_ptr(), f2.data_ptr(), sh, sw,
-            n, h, w, int(fill), int(images_per_block),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            n, h, w, int(fill), *g, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _lib.check(name, err)
     if sh:
         LAUNCHES["luma_blur_rotate_traced"] += 1
     else:
-        LAUNCHES["luma_blur_rotate_packed" if images_per_block > 1 else name] += 1
+        LAUNCHES["luma_blur_rotate_packed" if h < _PACKED_ROWS else name] += 1
     return out
 
 
@@ -557,7 +653,8 @@ def fused_blur_rotate_image(
     chain contract; oracle fast_warp.fused_stream_chain). Any angle: the
     rgb kernel's tiles and their stage are sized from the angle's shift
     slopes, as the JAX kernels size their pads from the shifts; the luma
-    kernel gathers with bounds checks. Images smaller than the blur window
+    kernel's bands take their shift windows from the tables on the card.
+    Images smaller than the blur window
     + 2 are blurred first by ``gaussian_blur`` (u8, rint; the
     ``blur_separable`` kernel on the card), then rotated at radius 0, as
     the JAX function does.
@@ -574,8 +671,7 @@ def fused_blur_rotate_image(
                                        grayscale_out=grayscale_out, stream=stream)
     x = img.contiguous()
     if stream and grayscale_out and (angle_deg != 0.0 or radius > 0):
-        return luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill,
-                                images_per_block=_images_per_block(n, h))
+        return luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill)
     return rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, strict=not stream,
                            grayscale=grayscale_out, identity=angle_deg == 0.0,
                            slopes=slope_bound(angle_deg))
@@ -630,8 +726,7 @@ def fused_blur_rotate_batched(
     k1, f1, k2, f2, ident = _traced_params(ang, n, h, w, float(max_angle_deg), img.device)
     x = img.contiguous()
     if stream and grayscale_out:
-        return luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill,
-                                images_per_block=_images_per_block(n, h))
+        return luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill)
     return rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, strict=not stream,
                            grayscale=grayscale_out, identity=ident,
                            slopes=budget_slope_bound(max_angle_deg))

@@ -52,7 +52,7 @@ def _run(imgs, device, radius, angle, gray, stream, fill):
     "shape,radius,angle,gray,stream,fill,kernel",
     [
         ((2, 130, 48), 1.5, 15.0, True, True, 0, "luma_blur_rotate"),   # h >= 128
-        ((3, 64, 48), 1.5, 15.0, True, True, 0, "luma_blur_rotate"),    # odd batch
+        ((3, 64, 48), 1.5, 15.0, True, True, 0, "luma_blur_rotate_packed"),  # odd batch
         ((64, 32, 32), 1.5, 15.0, True, True, 0, "luma_blur_rotate_packed"),
         ((2, 70, 45), 2.5, -30.0, True, True, 255, "luma_blur_rotate_packed"),
         ((2, 64, 48), 1.5, 15.0, False, True, 0, "rgb_blur_rotate"),
@@ -74,9 +74,10 @@ def test_kernel_equals_plain(rng, cuda, shape, radius, angle, gray, stream, fill
 def test_packed_geometry_byte_equal_to_one_image_a_block(rng, cuda):
     x = torch.from_numpy(rng.integers(0, 256, (64, 32, 32, 3), dtype=np.uint8)).to(cuda)
     taps, p, k1, f1, k2, f2 = mk._params(32, 32, 1.5, 15.0, x.device)
-    packed = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0,
-                                 images_per_block=mk._images_per_block(64, 32))
-    single = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, images_per_block=1)
+    g = mk._luma_geometry(32, 32, p)
+    assert g.groups > 1
+    packed = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0)
+    single = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, geometry=g._replace(groups=1))
     assert torch.equal(packed, single)
 
 
@@ -126,9 +127,10 @@ def test_traced_packed_geometry_byte_equal_to_one_image_a_block(rng, cuda):
     taps, p = mk._params(32, 32, 1.5, 0.0, x.device)[:2]
     k1, f1, k2, f2, _ = mk._traced_params(np.linspace(-22.5, 22.5, 64), 64, 32, 32, 22.5,
                                           x.device)
-    packed = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0,
-                                 images_per_block=mk._images_per_block(64, 32))
-    single = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, images_per_block=1)
+    g = mk._luma_geometry(32, 32, p)
+    assert g.groups > 1
+    packed = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0)
+    single = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, geometry=g._replace(groups=1))
     assert torch.equal(packed, single)
 
 

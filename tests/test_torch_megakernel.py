@@ -159,28 +159,50 @@ def test_plain_strict_matches_jax_kernel(rng, shape, radius, angle, gray):
 
 
 def test_packed_geometry_equals_unpacked(rng):
-    """A packable CIFAR-size batch takes the many-images-per-block geometry
-    (the counterpart of _mega_gray1_packed_kernel); its output equals the
-    oracle, the JAX packed kernel, and each image run on its own."""
+    """A packable CIFAR-size batch takes the many-images-a-block geometry
+    (the counterpart of _mega_gray1_packed_kernel);
+    its output equals the oracle, the JAX packed kernel, and each image run
+    on its own."""
     imgs = rng.integers(0, 256, (64, 32, 32, 3), dtype=np.uint8)
-    assert mk._images_per_block(64, 32) > 1
+    g = mk._luma_geometry(32, 32, 4)
+    assert g.groups > 1 and g.seg_w == 32  # several images a block, whole rows
     assert jmk._pack_factors(64, 32, 32) != (1, 1)  # JAX packs it too
     out = _port(imgs, 1.5, 15.0, True, stream=True)
     one_by_one = np.concatenate(
         [_port(imgs[i : i + 1], 1.5, 15.0, True, stream=True) for i in range(len(imgs))]
     )
-    assert mk._images_per_block(1, 32) == 1
+    assert mk._luma_geometry(512, 512, 4).groups == 1  # one unit a block at 512
     assert np.array_equal(out, one_by_one)
     assert np.array_equal(out, ofw.fused_stream_chain(imgs, 1.5, 15.0, grayscale_out=True))
     _assert_close(out, _jax(imgs, 1.5, 15.0, True, stream=True), max_frac=1e-4)
 
 
 @pytest.mark.parametrize(
-    "n,h,want",
-    [(4096, 32, 2), (64, 32, 2), (12, 32, 2), (6, 32, 2), (3, 32, 1), (32, 512, 1), (128, 224, 1)],
+    "h,w,p,want",
+    [
+        # whole rows, several small images a block (h < 128: the JAX
+        # package's packed route)
+        (32, 32, 4, (16, 4, 32, 34, 8, 16)),
+        (64, 48, 4, (16, 4, 48, 50, 12, 10)),
+        # bands of whole rows
+        (512, 512, 4, (32, 8, 512, 514, 128, 1)),
+        (224, 224, 4, (32, 8, 224, 226, 56, 2)),
+        (130, 48, 7, (32, 8, 48, 50, 12, 10)),
+        # column segments: rows too wide for a block's threads, or a radius
+        # whose ring of X rows fills shared memory
+        (600, 3000, 4, (32, 8, 512, 1026, 257, 1)),
+        (2000, 2000, 500, (32, 8, 16, 34, 9, 1)),
+    ],
 )
-def test_images_per_block(n, h, want):
-    assert mk._images_per_block(n, h) == want
+def test_images_per_block(h, w, p, want):
+    """The luma kernel's geometry (images a block, band rows, segments) is
+    the host's choice from the shapes alone, and fits the kernel's limits."""
+    g = mk._luma_geometry(h, w, p)
+    assert tuple(g) == want
+    assert g.threads * g.groups <= mk._LUMA_THREADS
+    assert g.threads * mk._LUMA_COLS >= min(g.win, w)
+    assert g.win >= (w + 2 if g.seg_w >= w else g.seg_w + 1)
+    assert max(mk._luma_smem(g, h, w, p)) <= mk._SMEM_MAX
 
 
 def test_per_image_shifts_equal_shared_shifts(rng):

@@ -11,8 +11,8 @@ both flag sets; the strict, rotation-60, affine-run and photometric chains,
 ``blur_separable``, ``rotate_3shear``, ``blur_rotate_fused`` and
 ``shear_rows_per_image`` at 32x512x512), runs CALLS calls under
 ``torch.profiler`` after a warm-up and prints one JSON line: device time by
-CUDA kernel name (the blur launch and the shear launch of each kernel pair,
-PyTorch's own kernels if any), the wall time of the window, and the device's
+CUDA kernel name (the luma kernel's row launch and column launch
+apart, PyTorch's own kernels if any), the wall time of the window, and the device's
 busy share (sum of kernel time over wall time). Needs a CUDA device; exits 1
 without one. Imports nothing of JAX.
 """

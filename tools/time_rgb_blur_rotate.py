@@ -10,7 +10,7 @@ and 15 degrees beside ``rotate_3shear`` (the same function by three row /
 column launches, on the same batch), and with per-image angles (the
 rotation grid cycled over the batch, strict, r 0: apply_all's rotation);
 and the luma kernel (``csrc/luma_blur_rotate.cu``) at r 1.5, 15 degrees
-and per-image angles, whose times should not move. ``ms`` is one wrapper
+and per-image angles (also at 128x224x224x3). ``ms`` is one wrapper
 call (CUDA events around 20 calls after two warm-up calls, host overhead
 included), ``device_ms`` the device time of its kernels alone
 (torch.profiler, 20 calls). Each row carries its bound (``bound_ms``, from
@@ -35,8 +35,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def rows(torch, cs, mk, sh, shape):
-    """Print one JSON line a case at ``shape`` (n, h, w)."""
+def rows(torch, cs, mk, sh, shape, luma_only=False):
+    """Print one JSON line a case at ``shape`` (n, h, w); the luma kernel's
+    cases alone if ``luma_only``."""
     n, h, w = shape
     x = cs.images(torch, shape, cs.SEED + 300)
     dev = x.device
@@ -63,8 +64,11 @@ def rows(torch, cs, mk, sh, shape):
             k1, f1, k2, f2, _ = mk._traced_params(cs.traced_angles(n), n, h, w, 25.0, dev)
         else:
             taps, p, k1, f1, k2, f2 = mk._params(h, w, cs.BLUR_RADIUS, cs.ANGLE, dev)
-        ipb = mk._images_per_block(n, h)
-        run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, ipb)
+        if hasattr(mk, "_images_per_block"):  # a tree before the band design
+            ipb = mk._images_per_block(n, h)
+            run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, ipb)
+        else:
+            run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0)
         plain = lambda: mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0)
         return run, plain, cs.bound(n, h, w, 3, 3, cs.ops_luma(p))
 
@@ -80,6 +84,8 @@ def rows(torch, cs, mk, sh, shape):
         ("luma_blur_rotate", f"stream gray r {r} {a} deg", *luma(False)),
         ("luma_blur_rotate_traced", f"stream gray r {r}, angles -22.5..22.5", *luma(True)),
     ]
+    if luma_only:
+        cases = [c for c in cases if c[0].startswith("luma")]
     for name, mode, run, plain, bnd in cases:
         got = run()
         torch.cuda.synchronize()
@@ -113,6 +119,7 @@ def main() -> int:
           flush=True)
     for shape in (cs.SHAPE_512, cs.SHAPE_32):
         rows(torch, cs, mk, sh, shape)
+    rows(torch, cs, mk, sh, cs.SHAPE_224, luma_only=True)
     return 0
 
 
