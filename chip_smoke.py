@@ -21,10 +21,14 @@ each with the launch counters reset just before it and read just after,
 times each sweep type, and times each kernel beside its bound and, where
 one exists, a PyTorch call that computes the same function or samples the
 same way: ``ms`` a wrapper call (CUDA events), ``device_ms`` its kernels'
-device time alone (torch.profiler); the rgb kernel's entries add rows
+device time alone (torch.profiler; where a session records nothing, CUDA
+events around calls queued behind a spin kernel); the rgb kernel's entries add rows
 (``modes``) for stream mode, strict at radius 0 beside ``rotate_3shear``
-and the sweep's use at 4096x32x32; phase ``geometry`` times the luma
-kernel's band rows and images a block at 4096x32x32 and 32x512x512.
+and the sweep's use at 4096x32x32, and the BICUBIC shear's and the
+bilinear zoom's entries a row at 4096x32x32 (the sweeps' CIFAR use; their
+parity cases add the shear budget's edge 1.05, negative factors and
+random_zoom at 0.5 and 4); phase ``geometry`` times the luma kernel's
+band rows and images a block at 4096x32x32 and 32x512x512.
 Prints one JSON line per phase; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
@@ -58,6 +62,8 @@ SHEAR_GRID = [round(0.1 * i, 1) for i in range(11)]
 SCALE_GRID = [0.9, 1.0, 1.1, 1.2, 1.3, 1.4]
 BLUR_GRID = [0.5 * i for i in range(11)]  # radius 0:0.5:5
 ZOOM_BOUNDS = [0.85, 1.45]  # the fast scale's budget: scale grid min/max -+ 0.05
+RANDOM_ZOOM_FACTORS = [0.5, 1.2, 4.0]  # random_zoom's kernel range [0.5, 4], and inside it
+SHEAR_EDGES = [1.05, -0.3, 0.5, -1.0]  # the shear budget's edge and negative factors
 APPLY_ALL_BUDGET = 23.0  # max |grid angle| + 0.5, as pipeline/batch.py routes it
 PER_IMAGE_PAD = 20  # shear_rows_per_image's pad_px on the main path (shifts to +-30)
 # apply_all's flags by main-path run kind
@@ -184,7 +190,9 @@ def device_ms(torch, fn, reps: int) -> float:
     it launches, under torch.profiler, over `reps` calls after two warm-up
     calls. Host time between launches is not counted, so for a kernel
     faster than its wrapper's host overhead this is the kernel's time, where
-    ``time_ms`` is the wrapper's."""
+    ``time_ms`` is the wrapper's. torch.profiler at times stops recording
+    within a process (PERF.md section 7); where a session records no device
+    time, ``held_ms`` takes it instead."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -196,9 +204,36 @@ def device_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
     us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages()
              if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    if us <= 0:
-        fail("torch.profiler recorded no device time")
-    return us / reps / 1e3
+    if us > 0:
+        return us / reps / 1e3
+    print("chip_smoke: torch.profiler recorded no device time; CUDA events on a held stream",
+          file=sys.stderr, flush=True)
+    return held_ms(torch, fn, reps)
+
+
+def held_ms(torch, fn, reps: int) -> float:
+    """Mean device time of one fn() call without the profiler: a spin kernel
+    holds the stream while the host queues `reps` calls between two CUDA
+    events, so the card runs them back to back and the events time the
+    kernels (and the gaps between launches, ~1 us) but no host time. The
+    hold grows until the start event is still pending when the last call
+    is queued; fails if it never is."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000  # ~10 ms at the H100's clock
+    for _ in range(4):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    fail("no device time: torch.profiler recorded none, and the host did not queue "
+         f"{reps} calls within a held stream")
 
 
 def row_launches(launches: dict, kernel: str) -> int:
@@ -262,12 +297,6 @@ def bound_blur_batched(torch, x, radii):
     return bound_of(2 * x.numel() + taps.numel() * 4, ops)
 
 
-def ops_shear_bicubic(c: int) -> int:
-    # per pixel: xo, s*yo, two adds, -0.5, floor, sub (the source coordinate);
-    # per value: 4 cvt, p2 (2), p3 (4), p4 (4), Horner (3 mul + 3 add), clip (3)
-    return 7 + 23 * c
-
-
 # The gather kernels read only the source pixels their taps touch, which
 # depends on the parameters: each bound counts the source bytes this run's
 # parameters need (each read once), every output byte, and the parameters.
@@ -296,11 +325,37 @@ def bound_shear_cols(torch, x, shifts, b_px):
     return bound_of(nbytes, n * h * w * (7 * c + 3) + w * 5)
 
 
+def bound_shear_bicubic(torch, x, factors):
+    """PIL BICUBIC shear: reads the source bytes its valid pixels' taps
+    touch (columns [x0(first valid) - 1, x0(last valid) + 2] of each row,
+    within the row) and the factors, writes every output byte. Operations:
+    per pixel the coordinate and its test (2 adds, 2 compares); per valid
+    pixel xin, floor and fx (3); per valid value the cubic (p2 1, p3 4, p4
+    3, Horner 6), the clip (2) and the trunc (1); one u8 -> f32 conversion
+    a source value read; per row t (2), per image m2 (2)."""
+    n, h, w, c = x.shape
+    s = factors.reshape(n, 1, 1)
+    m2 = -torch.where(s > 0, torch.ceil(s * float(h)), 0.0)
+    xo = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, w) + 0.5
+    yo = torch.arange(h, dtype=torch.float32, device=x.device).view(1, h, 1) + 0.5
+    xx = (xo + s * yo) + m2
+    valid = (xx >= 0) & (xx < w)
+    x0 = torch.floor(xx - 0.5)
+    lo = torch.where(valid, x0, float(w)).amin(-1) - 1  # x0 is monotone along a row
+    hi = torch.where(valid, x0, -1.0).amax(-1) + 2
+    cols = torch.where(valid.any(-1), hi.clamp(max=w - 1) - lo.clamp(min=0) + 1, 0.0)
+    touched = int(cols.sum().item()) * c
+    nvalid = int(valid.sum().item())
+    ops = n * h * w * 4 + nvalid * (3 + 17 * c) + touched + n * h * 2 + n * 2
+    return bound_of(touched + n * h * w * c + n * 4, ops)
+
+
 def bound_zoom(torch, x, factors):
-    """Bilinear zoom: per value four conversions, three lerps (9), trunc,
-    clip (2), conversion; per pixel the joint validity; per column and per
-    row of each image the axis terms (15); per image 1/f and m (5). Reads
-    the rows and columns its taps touch."""
+    """Bilinear zoom: reads the rows and columns its taps touch. Operations:
+    one u8 -> f32 conversion a source value read; per valid value three
+    lerps (9) and the trunc (1: both lerps stay within their u8 ends, so
+    no clip binds); per pixel the joint validity; per column and per row
+    of each image the axis terms (15); per image 1/f and m (5)."""
     from imagetransformations_tpu_torch.ops.hopper.resample import zoom_axis
 
     n, h, w, c = x.shape
@@ -311,10 +366,14 @@ def bound_zoom(torch, x, factors):
         hits = torch.zeros((n, dim), dtype=torch.int32, device=x.device)
         hits.scatter_add_(1, i0, valid.to(torch.int32))
         hits.scatter_add_(1, i1, valid.to(torch.int32))
-        return (hits > 0).sum(1)
+        return (hits > 0).sum(1), valid.sum(1)
 
-    nbytes = int((touched(w) * touched(h)).sum().item()) * c + n * h * w * c + n * 4
-    return bound_of(nbytes, n * h * w * (17 * c + 1) + n * (h + w) * 15 + n * 5)
+    (tw, vw), (th, vh) = touched(w), touched(h)
+    read = int((tw * th).sum().item()) * c
+    nbytes = read + n * h * w * c + n * 4
+    axes = n * (h + w) * 15 + n * 5
+    nvalid = int((vw * vh).sum().item()) * c
+    return bound_of(nbytes, read + nvalid * 10 + n * h * w + axes)
 
 
 def bound_rotate(torch, x, mats):
@@ -589,6 +648,28 @@ def rgb_modes(torch, mk, sh, kernel, run_launches) -> list:
     return rows
 
 
+def resample_modes(torch, rs, kernel, run_launches) -> list:
+    """The kernels line's further row of #10 / #11: the sweep's use at
+    4096x32x32 (the scale grid or the shear grid cycled over the batch),
+    held at 0 LSB against the plain version; launches from that sweep's
+    main-path run."""
+    n, h, w = SHAPE_32
+    x = images(torch, SHAPE_32, SEED + 104)
+    if kernel == "shear_bicubic":
+        f = torch.from_numpy(cycled(SHEAR_GRID, n)).to(x.device)
+        run, want = lambda: rs.shear_bicubic(x, f), rs.shear_bicubic_plain(x, f)
+        b, label = bound_shear_bicubic(torch, x, f), "apply_all_transformations 32 (cifar)"
+        mode = "grid factors 0..1"
+    else:
+        f = torch.from_numpy(cycled(SCALE_GRID, n)).to(x.device)
+        run, want = lambda: rs.zoom_bilinear(x, f), rs.zoom_bilinear_plain(x, f)
+        b = bound_zoom(torch, x, f)
+        label = "apply_all_transformations fast+pil-rotation 32 (cifar)"
+        mode = "scale grid factors 0.9..1.4"
+    return [mode_row(torch, mode, SHAPE_32, run, want, b,
+                     run_launches.get(label, {}).get(kernel, 0))]
+
+
 def mode_row(torch, mode, shape, run, want, b, launches) -> dict:
     err = max_lsb(torch, run(), want)
     if err != 0:
@@ -807,19 +888,22 @@ def main() -> int:
     errs["rgb_blur_rotate_traced"] = max(errs["rgb_blur_rotate_traced"], err)
     del x, out
 
+    # the shear grid, then its budget edge 1.05 (rows with no valid pixel)
+    # and negative factors (no canvas shift) beside grid values
     for shape, seed in ((SHAPE_512, SEED + 24), (SHAPE_32, SEED + 25)):
         x = images(torch, shape, seed)
-        f = torch.from_numpy(cycled(SHEAR_GRID, shape[0])).to(x.device)
-        before = mk.LAUNCHES["shear_bicubic"]
-        out = rs.shear_bicubic_batched(x, f)
-        if mk.LAUNCHES["shear_bicubic"] != before + 1:
-            fail(f"shear_bicubic {shape}: the entry point did not route to it")
-        err = max_lsb(torch, out, rs.shear_bicubic_plain(x, f))
-        emit({"phase": "parity", "kernel": "shear_bicubic", "shape": [*shape, 3],
-              "factors": SHEAR_GRID, "max_lsb": err})
-        if err != 0:
-            fail(f"parity shear_bicubic {shape} differs by {err} LSB")
-        errs["shear_bicubic"] = max(errs["shear_bicubic"], err)
+        for factors in (SHEAR_GRID, SHEAR_EDGES):
+            f = torch.from_numpy(cycled(factors, shape[0])).to(x.device)
+            before = mk.LAUNCHES["shear_bicubic"]
+            out = rs.shear_bicubic_batched(x, f)
+            if mk.LAUNCHES["shear_bicubic"] != before + 1:
+                fail(f"shear_bicubic {shape}: the entry point did not route to it")
+            err = max_lsb(torch, out, rs.shear_bicubic_plain(x, f))
+            emit({"phase": "parity", "kernel": "shear_bicubic", "shape": [*shape, 3],
+                  "factors": factors, "max_lsb": err})
+            if err != 0:
+                fail(f"parity shear_bicubic {shape} {factors} differs by {err} LSB")
+            errs["shear_bicubic"] = max(errs["shear_bicubic"], err)
         del x, out
 
     # row shift, zoom and NEAREST rotation: the parameters are computed once
@@ -860,9 +944,11 @@ def main() -> int:
         kern = rs.zoom_bilinear(x, f)
         zoom_rows["max_lsb"] = max_lsb(torch, kern, rs.zoom_bilinear_plain(x, f))
         zoom_rows["max_lsb_entry_vs_kernel"] = max_lsb(torch, out, kern)
-        out = routed("zoom_bilinear", lambda: wp.random_zoom(x, 1.2))
-        f12 = torch.full((n,), 1.2, dtype=torch.float32, device=dev)
-        zoom_rows["max_lsb_random_zoom_vs_kernel"] = max_lsb(torch, out, rs.zoom_bilinear(x, f12))
+        for factor in RANDOM_ZOOM_FACTORS:  # random_zoom's range [0.5, 4] and inside it
+            out = routed("zoom_bilinear", lambda: wp.random_zoom(x, factor))
+            fz = torch.full((n,), factor, dtype=torch.float32, device=dev)
+            zoom_rows[f"max_lsb_random_zoom_{factor:g}_vs_plain"] = max_lsb(
+                torch, out, rs.zoom_bilinear_plain(x, fz))
         # the rotation over the grid angles and +-45; apply_rotation at 45
         angles = cycled(ROTATION_GRID + [45.0, -45.0], n)
         rot_rows = {"phase": "parity", "kernel": "pil_rotate_nearest", "shape": [*shape, 3],
@@ -1069,6 +1155,7 @@ def main() -> int:
                 run = lambda: rs.zoom_bilinear(x, f)
                 plain = lambda: rs.zoom_bilinear_plain(x, f)
                 b_ms, b_by = bound_zoom(torch, x, f)
+                extra = {"modes": resample_modes(torch, rs, kernel, run_launches_by_label)}
                 inv = (1.0 / f).view(n, 1, 1)
                 src_x = inv * xo + (w / 2.0 - inv * (w / 2.0))  # centre zoom, as zoom_matrix
                 src_y = inv * yo + (h / 2.0 - inv * (h / 2.0))
@@ -1180,7 +1267,8 @@ def main() -> int:
             f = torch.from_numpy(cycled(SHEAR_GRID, shape[0])).to(x.device)
             run = lambda: rs.shear_bicubic(x, f)
             plain = lambda: rs.shear_bicubic_plain(x, f)
-            b_ms, b_by = bound(*shape, 3, 3, ops_shear_bicubic(3))
+            b_ms, b_by = bound_shear_bicubic(torch, x, f)
+            extra = {"modes": resample_modes(torch, rs, kernel, run_launches_by_label)}
             mode = "grid factors 0..1"
         else:
             traced = kernel.endswith("_traced")

@@ -22,6 +22,18 @@ import torch
 from imagetransformations_tpu_torch.ops.hopper import _lib
 
 
+def _check(x: torch.Tensor, factors: torch.Tensor) -> None:
+    """A kernel's arguments: a contiguous NHWC u8 CUDA tensor and its
+    contiguous f32 [n] factors on the same device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
+    if x.dtype != torch.uint8 or x.ndim != 4 or not x.is_contiguous():
+        raise ValueError("expected a contiguous NHWC uint8 tensor")
+    if (factors.device != x.device or factors.dtype != torch.float32
+            or factors.shape != (x.shape[0],) or not factors.is_contiguous()):
+        raise ValueError("factors must be a contiguous f32 [n] tensor on the image's device")
+
+
 def shear_bicubic_plain(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
     """Plain version of ``shear_bicubic``: NHWC u8, f32 factors [n]."""
     n, h, w, c = x.shape
@@ -56,16 +68,8 @@ def shear_bicubic(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
     On CUDA: ``csrc/shear_bicubic.cu``; on the CPU: the plain version."""
     if x.device.type == "cpu":
         return shear_bicubic_plain(x, factors)
-    if x.device.type != "cuda":
-        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
-    if x.dtype != torch.uint8 or x.ndim != 4 or not x.is_contiguous():
-        raise ValueError("expected a contiguous NHWC uint8 tensor")
+    _check(x, factors)
     n, h, w, c = x.shape
-    if (factors.device != x.device or factors.dtype != torch.float32
-            or factors.shape != (n,) or not factors.is_contiguous()):
-        raise ValueError("factors must be a contiguous f32 [n] tensor on the image's device")
-    if h > 65535:
-        raise ValueError("shear_bicubic launches one block row per image row: h <= 65535")
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -148,16 +152,8 @@ def zoom_bilinear(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
     On CUDA: ``csrc/zoom_bilinear.cu``; on the CPU: the plain version."""
     if x.device.type == "cpu":
         return zoom_bilinear_plain(x, factors)
-    if x.device.type != "cuda":
-        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
-    if x.dtype != torch.uint8 or x.ndim != 4 or not x.is_contiguous():
-        raise ValueError("expected a contiguous NHWC uint8 tensor")
+    _check(x, factors)
     n, h, w, c = x.shape
-    if (factors.device != x.device or factors.dtype != torch.float32
-            or factors.shape != (n,) or not factors.is_contiguous()):
-        raise ValueError("factors must be a contiguous f32 [n] tensor on the image's device")
-    if h > 65535:
-        raise ValueError("zoom_bilinear launches one block row per image row: h <= 65535")
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out

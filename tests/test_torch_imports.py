@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "imagetransformations_tpu")
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tools" / "profile_torch_port.py",
-                                         ROOT / "tools" / "time_blur.py"]
+                                         ROOT / "tools" / "time_blur.py",
+                                         ROOT / "tools" / "time_resample.py"]
 
 
 def _imported(tree):
