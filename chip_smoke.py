@@ -5,9 +5,12 @@
 
 Builds the hand-written CUDA kernels from ``imagetransformations_tpu_torch/
 csrc`` with nvcc, holds each against its plain PyTorch version on the card
-at full size (0 LSB), drives the main paths (``build_chain_fn`` with static
-and per-image angles, in strict mode, with an affine run, a rotation beyond
-45 degrees and a photometric chain; ``fused_blur_rotate_image``; the 8-type
+at full size (0 LSB; the NEAREST rotation also against a numpy model of
+Pillow's fixed point on the host, on the grid, beyond 45 degrees and on
+Pillow's f64 route), drives the main paths (``build_chain_fn`` with static
+and per-image angles, in strict mode (also a strict rotation of 135
+degrees, on the NEAREST rotation kernel), with an affine run, a rotation
+beyond 45 degrees and a photometric chain; ``fused_blur_rotate_image``; the 8-type
 ``apply_all_transformations`` sweep with its default flags and with the
 fast scale/shear and PIL rotation; ``blur_separable``, ``rotate_3shear``,
 ``blur_rotate_fused`` and ``shear_rows_per_image``) at the benchmark shapes,
@@ -24,8 +27,8 @@ same way: ``ms`` a wrapper call (CUDA events), ``device_ms`` its kernels'
 device time alone (torch.profiler; where a session records nothing, CUDA
 events around calls queued behind a spin kernel); the rgb kernel's entries add rows
 (``modes``) for stream mode, strict at radius 0 beside ``rotate_3shear``
-and the sweep's use at 4096x32x32, and the BICUBIC shear's and the
-bilinear zoom's entries a row at 4096x32x32 (the sweeps' CIFAR use; their
+and the sweep's use at 4096x32x32, and the BICUBIC shear's, the
+bilinear zoom's and the NEAREST rotation's entries a row at 4096x32x32 (the sweeps' CIFAR use; their
 parity cases add the shear budget's edge 1.05, negative factors and
 random_zoom at 0.5 and 4); phase ``geometry`` times the luma kernel's
 band rows and images a block at 4096x32x32 and 32x512x512.
@@ -65,6 +68,9 @@ ZOOM_BOUNDS = [0.85, 1.45]  # the fast scale's budget: scale grid min/max -+ 0.0
 RANDOM_ZOOM_FACTORS = [0.5, 1.2, 4.0]  # random_zoom's kernel range [0.5, 4], and inside it
 SHEAR_EDGES = [1.05, -0.3, 0.5, -1.0]  # the shear budget's edge and negative factors
 APPLY_ALL_BUDGET = 23.0  # max |grid angle| + 0.5, as pipeline/batch.py routes it
+STRICT_ANGLE = 135.0  # a strict rotation beyond 45 degrees: Pillow's gather (kernel #12)
+ROTATION_EDGES = [60.0, -60.0, 90.0, 135.0, 180.0]  # #12's parity beyond the grid
+FLOAT_PATH_SHAPE = (1, 3, 40000)  # (n, h, w): Pillow's f64 route (every corner past 32768)
 PER_IMAGE_PAD = 20  # shear_rows_per_image's pad_px on the main path (shifts to +-30)
 # apply_all's flags by main-path run kind
 SWEEP_FLAGS = {
@@ -376,20 +382,69 @@ def bound_zoom(torch, x, factors):
     return bound_of(nbytes, read + nvalid * 10 + n * h * w + axes)
 
 
-def bound_rotate(torch, x, mats):
-    """NEAREST rotation: per pixel two adds and a floor a coordinate (6),
-    the window test (4 compares, 3 ands), two conversions, and a select a
-    value; the m*xc and m*yc products once a column and once a row. Reads
-    the source pixels that land inside the output."""
-    from imagetransformations_tpu_torch.ops.hopper.rotate_gather import rotate_source
+def bound_rotate(torch, x, coeffs):
+    """Pillow's fixed-point NEAREST rotation: per pixel two adds and two
+    shifts (the 16.16 coordinates), the window test (2 unsigned compares
+    and an and), the source address (2), and a select a value; per row the
+    accumulators' start (4). Reads the source pixels that land inside the
+    output (from the same integers) and the int32 coefficients."""
+    from imagetransformations_tpu_torch.ops.hopper.rotate_gather import _wrap_shift
 
     n, h, w, c = x.shape
-    xx, yy, valid = rotate_source(mats, h, w)
-    idx = torch.where(valid, yy * w + xx, 0).to(torch.int64).reshape(n, -1)
+    k = coeffs.to(torch.int64).expand(n, 6).reshape(n, 6, 1, 1)
+    xs = torch.arange(w, dtype=torch.int64, device=x.device).view(1, 1, w)
+    ys = torch.arange(h, dtype=torch.int64, device=x.device).view(1, h, 1)
+    xi = _wrap_shift(k[:, 2] + ys * k[:, 1] + xs * k[:, 0])
+    yi = _wrap_shift(k[:, 5] + ys * k[:, 4] + xs * k[:, 3])
+    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    idx = torch.where(valid, yi * w + xi, 0).reshape(n, -1)
     hits = torch.zeros((n, h * w), dtype=torch.int32, device=x.device)
     hits.scatter_add_(1, idx, valid.reshape(n, -1).to(torch.int32))
-    nbytes = int((hits > 0).sum().item()) * c + n * h * w * c + mats.numel() * 4
-    return bound_of(nbytes, n * h * w * (15 + c) + n * 2 * (h + w))
+    nbytes = int((hits > 0).sum().item()) * c + n * h * w * c + coeffs.numel() * 4
+    return bound_of(nbytes, n * h * w * (9 + c) + n * h * 4)
+
+
+def rotate_coeffs(torch, angles, w, h, device):
+    """int32 [n, 6] Pillow coefficients of host angles, on ``device``."""
+    from imagetransformations_tpu_torch.ops.hopper.rotate_gather import pil_rotate_coeffs
+
+    co = pil_rotate_coeffs(angles, w, h)
+    if co.flagged.any():
+        fail(f"angles {angles} at {w}x{h} take Pillow's float path")
+    return torch.from_numpy(co.fixed).to(device)
+
+
+def rotate_model(x, coeffs, fill, fp=None):
+    """Pillow's NEAREST rotation in numpy on the host, written apart from
+    the port's plain version: x u8 [n, h, w, c], coeffs int32 [n, 6]; the
+    flagged images (``fp``: indices, f64 row starts [m, h, 2], per-pixel
+    steps [m, 2]) by sequential f64 adds along each row."""
+    import numpy as np
+
+    n, h, w, c = x.shape
+    k = np.broadcast_to(np.asarray(coeffs, np.int64), (n, 6)).reshape(n, 6, 1, 1)
+    ys, xs = np.arange(h, dtype=np.int64).reshape(1, h, 1), np.arange(w, dtype=np.int64)
+
+    def fixed(i0, i1, i2):
+        v = k[:, i2] + ys * k[:, i1] + xs.reshape(1, 1, w) * k[:, i0]
+        return ((v + 2**31) % 2**32 - 2**31) >> 16
+
+    xi, yi = fixed(0, 1, 2), fixed(3, 4, 5)
+    if fp is not None:
+        images, rows, steps = (np.asarray(t) for t in fp)
+        for j, img in enumerate(images.tolist()):
+            seq = np.empty((h, w, 2))
+            seq[:, 0] = rows[j]
+            seq[:, 1:] = steps[j]
+            acc = np.add.accumulate(seq, axis=1)  # one add a pixel, in order
+            okf = (acc >= 0).all(-1) & (acc[..., 0] < w) & (acc[..., 1] < h)
+            xi[img] = np.where(okf, acc[..., 0], -1).astype(np.int64)
+            yi[img] = np.where(okf, acc[..., 1], -1).astype(np.int64)
+    ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    out = np.full_like(x, fill)
+    nn = np.broadcast_to(np.arange(n).reshape(n, 1, 1), ok.shape)
+    out[ok] = x[nn[ok], yi[ok], xi[ok]]
+    return out
 
 
 def grid_sample_call(torch, x, src_x, src_y, mode):
@@ -460,6 +515,7 @@ def main_path_runs():
     fn_traced = build_chain_fn(
         [blur, OpSpec("rotation", {"angle": traced_angles(SHAPE_512[0])}), gray])
     fn_strict = build_chain_fn([blur, rotation, gray], strict_parity=True)
+    fn_rot135 = build_chain_fn([OpSpec("rotation", {"angle": STRICT_ANGLE})], strict_parity=True)
     affine = [OpSpec("translation", {"tx": 12, "ty": -7}), OpSpec("zoom", {"factor": 1.2}),
               OpSpec("rotation", {"angle": 10.0})]
     fn_affine = build_chain_fn(affine)
@@ -481,10 +537,13 @@ def main_path_runs():
         return apply_all_transformations(x, SEED, **SWEEP_FLAGS["apply_all_fast"])
 
     def strict_plain(x):
-        m = wp.rotation_matrix(ANGLE, x.shape[2], x.shape[1], device=x.device)
-        m = m.expand(x.shape[0], 6).contiguous()
+        k = rotate_coeffs(torch, ANGLE, x.shape[2], x.shape[1], x.device)
         return ew.grayscale(rg.pil_rotate_nearest_plain(st.gaussian_blur_plain(x, BLUR_RADIUS),
-                                                        m, 0))
+                                                        k, 0))
+
+    def rot135_plain(x):
+        return rg.pil_rotate_nearest_plain(
+            x, rotate_coeffs(torch, STRICT_ANGLE, x.shape[2], x.shape[1], x.device), 0)
 
     def affine_plain(x):
         w, h = x.shape[2], x.shape[1]
@@ -527,6 +586,8 @@ def main_path_runs():
           "blur_separable_batched")),
         ("chain strict blur>rotate>gray 512", fn_strict, SHAPE_512, SEED + 40, strict_plain, 10,
          ("blur_separable", "pil_rotate_nearest")),
+        ("chain strict rotation 135 512", fn_rot135, SHAPE_512, SEED + 48, rot135_plain, 10,
+         ("pil_rotate_nearest",)),
         ("chain rotation 60 512", fn_rot60, SHAPE_512, SEED + 41, rot60_plain, 5, ()),
         ("chain affine translation>zoom>rotation(10) 512", fn_affine, SHAPE_512, SEED + 42,
          affine_plain, 5, ()),
@@ -581,7 +642,7 @@ def check_sweep(torch, x, res, kind: str) -> dict:
     values = res["rotation"][0]
     if kind == "apply_all_fast":
         plain["rotation"] = rg.pil_rotate_nearest_plain(
-            x, wp.rotation_matrix(values, w, h, device=x.device), 0)
+            x, rotate_coeffs(torch, values.cpu().numpy(), w, h, x.device), 0)
         values = res["shear"][0]
         bound_px = batch.fast_shear_budget(max(SHEAR_GRID), h)
         plain["shear"] = sh.shear_rows_plain(
@@ -651,23 +712,63 @@ def rgb_modes(torch, mk, sh, kernel, run_launches) -> list:
 def resample_modes(torch, rs, kernel, run_launches) -> list:
     """The kernels line's further row of #10 / #11: the sweep's use at
     4096x32x32 (the scale grid or the shear grid cycled over the batch),
-    held at 0 LSB against the plain version; launches from that sweep's
+    held at 0 LSB against the plain version, with the plain version's time
+    and F.grid_sample's (bilinear, #10 only); launches from that sweep's
     main-path run."""
     n, h, w = SHAPE_32
     x = images(torch, SHAPE_32, SEED + 104)
+    library = None  # no single PyTorch call for the BICUBIC shear (NO_LIBRARY)
     if kernel == "shear_bicubic":
         f = torch.from_numpy(cycled(SHEAR_GRID, n)).to(x.device)
-        run, want = lambda: rs.shear_bicubic(x, f), rs.shear_bicubic_plain(x, f)
+        run, plain = lambda: rs.shear_bicubic(x, f), lambda: rs.shear_bicubic_plain(x, f)
         b, label = bound_shear_bicubic(torch, x, f), "apply_all_transformations 32 (cifar)"
         mode = "grid factors 0..1"
     else:
         f = torch.from_numpy(cycled(SCALE_GRID, n)).to(x.device)
-        run, want = lambda: rs.zoom_bilinear(x, f), rs.zoom_bilinear_plain(x, f)
+        run, plain = lambda: rs.zoom_bilinear(x, f), lambda: rs.zoom_bilinear_plain(x, f)
         b = bound_zoom(torch, x, f)
         label = "apply_all_transformations fast+pil-rotation 32 (cifar)"
         mode = "scale grid factors 0.9..1.4"
-    return [mode_row(torch, mode, SHAPE_32, run, want, b,
-                     run_launches.get(label, {}).get(kernel, 0))]
+        xo = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, w) + 0.5
+        yo = torch.arange(h, dtype=torch.float32, device=x.device).view(1, h, 1) + 0.5
+        inv = (1.0 / f).view(n, 1, 1)
+        library = grid_sample_call(torch, x, (inv * xo + (w / 2.0 - inv * (w / 2.0))).expand(n, h, w),
+                                   (inv * yo + (h / 2.0 - inv * (h / 2.0))).expand(n, h, w),
+                                   "bilinear")
+    row = mode_row(torch, mode, SHAPE_32, run, plain(), b,
+                   run_launches.get(label, {}).get(kernel, 0))
+    row["plain_ms"] = time_ms(torch, plain, 5)
+    row["library_ms"] = None if library is None else time_ms(torch, library, 20)
+    return [row]
+
+
+def rotate_library_call(torch, x, coeffs):
+    """F.grid_sample (nearest) at the 16.16 coordinates of ``coeffs``,
+    taken as f32 pixel positions."""
+    n, h, w, _ = x.shape
+    k = coeffs.to(torch.float64).view(n, 6, 1, 1)
+    xs = torch.arange(w, dtype=torch.float64, device=x.device).view(1, 1, w)
+    ys = torch.arange(h, dtype=torch.float64, device=x.device).view(1, h, 1)
+    sx = ((k[:, 2] + ys * k[:, 1] + xs * k[:, 0]) / 65536.0).to(torch.float32)
+    sy = ((k[:, 5] + ys * k[:, 4] + xs * k[:, 3]) / 65536.0).to(torch.float32)
+    return grid_sample_call(torch, x, sx, sy, "nearest")
+
+
+def rotate_modes(torch, rg, run_launches) -> list:
+    """The kernels line's further row of #12: the fast sweep's use at
+    4096x32x32 (the rotation grid cycled over the batch), held at 0 LSB
+    against the plain version; launches from that sweep's main-path run."""
+    n, h, w = SHAPE_32
+    x = images(torch, SHAPE_32, SEED + 105)
+    k = rotate_coeffs(torch, cycled(ROTATION_GRID, n), w, h, x.device)
+    row = mode_row(torch, "rotation grid angles -22.5..22.5, fill 0", SHAPE_32,
+                   lambda: rg.pil_rotate_nearest(x, k, 0), rg.pil_rotate_nearest_plain(x, k, 0),
+                   bound_rotate(torch, x, k),
+                   run_launches.get("apply_all_transformations fast+pil-rotation 32 (cifar)",
+                                    {}).get("pil_rotate_nearest", 0))
+    row["plain_ms"] = time_ms(torch, lambda: rg.pil_rotate_nearest_plain(x, k, 0), 5)
+    row["library_ms"] = time_ms(torch, rotate_library_call(torch, x, k), 20)
+    return [row]
 
 
 def mode_row(torch, mode, shape, run, want, b, launches) -> dict:
@@ -949,20 +1050,29 @@ def main() -> int:
             fz = torch.full((n,), factor, dtype=torch.float32, device=dev)
             zoom_rows[f"max_lsb_random_zoom_{factor:g}_vs_plain"] = max_lsb(
                 torch, out, rs.zoom_bilinear_plain(x, fz))
-        # the rotation over the grid angles and +-45; apply_rotation at 45
+        # the rotation over the grid angles and +-45, against its plain
+        # version and a numpy model on the host from the same coefficients;
+        # apply_rotation at 45 and the sweep's table route
         angles = cycled(ROTATION_GRID + [45.0, -45.0], n)
         rot_rows = {"phase": "parity", "kernel": "pil_rotate_nearest", "shape": [*shape, 3],
                     "angles": ROTATION_GRID + [45.0, -45.0]}
         out = routed("pil_rotate_nearest",
                      lambda: rg.pil_rotate_nearest_batched(x, angles, max_angle_deg=45.0))
-        m = wp.rotation_matrix(angles, w, h, device=dev)
-        kern = rg.pil_rotate_nearest(x, m, 0)
-        rot_rows["max_lsb"] = max_lsb(torch, kern, rg.pil_rotate_nearest_plain(x, m, 0))
+        k = rotate_coeffs(torch, angles, w, h, dev)
+        kern = rg.pil_rotate_nearest(x, k, 0)
+        rot_rows["max_lsb"] = max_lsb(torch, kern, rg.pil_rotate_nearest_plain(x, k, 0))
         rot_rows["max_lsb_entry_vs_kernel"] = max_lsb(torch, out, kern)
+        rot_rows["max_lsb_vs_host_model"] = max_lsb(torch, kern, torch.from_numpy(
+            rotate_model(x.cpu().numpy(), k.cpu().numpy(), 0)).to(dev))
         out = routed("pil_rotate_nearest", lambda: wp.apply_rotation(x, 45.0))
-        m45 = wp.rotation_matrix(45.0, w, h, device=dev).expand(n, 6).contiguous()
+        k45 = rotate_coeffs(torch, 45.0, w, h, dev).expand(n, 6)
         rot_rows["max_lsb_apply_rotation_vs_kernel"] = max_lsb(torch, out,
-                                                               rg.pil_rotate_nearest(x, m45, 0))
+                                                               rg.pil_rotate_nearest(x, k45, 0))
+        grid_idx = torch.arange(n, device=dev) % len(ROTATION_GRID)
+        out = routed("pil_rotate_nearest",
+                     lambda: batch._rotation_pil(x, grid_idx, tuple(ROTATION_GRID)))
+        rot_rows["max_lsb_sweep_table_vs_plain"] = max_lsb(torch, out, rg.pil_rotate_nearest_plain(
+            x, rotate_coeffs(torch, cycled(ROTATION_GRID, n), w, h, dev), 0))
         torch.cuda.synchronize()
         for kernel, r in (("shear_rows_logrouted", row), ("zoom_bilinear", zoom_rows),
                           ("pil_rotate_nearest", rot_rows)):
@@ -972,6 +1082,46 @@ def main() -> int:
                 fail(f"parity {kernel} {shape} differs by {err} LSB")
             errs[kernel] = max(errs[kernel], err)
         del x, out, kern
+
+    # #12 beyond the grid at 512x512 (an edge angle an image, and 135 for the
+    # batch with fill 255), then at the f64 route's shape, each against its
+    # plain version and the host model
+    import numpy as np
+
+    x = images(torch, SHAPE_512, SEED + 28)
+    n, h, w = SHAPE_512
+    angles = cycled(ROTATION_EDGES, n)
+    k = rotate_coeffs(torch, angles, w, h, x.device)
+    edge_row = {"phase": "parity", "kernel": "pil_rotate_nearest", "shape": [*SHAPE_512, 3],
+                "angles": ROTATION_EDGES}
+    out = routed("pil_rotate_nearest", lambda: rg.pil_rotate_nearest_batched(x, angles))
+    edge_row["max_lsb"] = max_lsb(torch, out, rg.pil_rotate_nearest_plain(x, k, 0))
+    edge_row["max_lsb_vs_host_model"] = max_lsb(torch, out, torch.from_numpy(
+        rotate_model(x.cpu().numpy(), k.cpu().numpy(), 0)).to(x.device))
+    out = routed("pil_rotate_nearest", lambda: rg.pil_rotate_nearest_batched(x, 135.0, fill=255))
+    k = rotate_coeffs(torch, 135.0, w, h, x.device).expand(n, 6)
+    edge_row["max_lsb_135_fill_255"] = max_lsb(torch, out, rg.pil_rotate_nearest_plain(x, k, 255))
+    n, h, w = FLOAT_PATH_SHAPE
+    x = images(torch, FLOAT_PATH_SHAPE, SEED + 29, c=1)
+    co = rg.pil_rotate_coeffs(7.0, w, h)
+    if not co.flagged.all():
+        fail(f"7 degrees at {w}x{h} should take Pillow's float path")
+    fp = rg.float_path(co, np.zeros(n, np.int64), h, x.device)
+    float_row = {"phase": "parity", "kernel": "pil_rotate_nearest", "shape": [*FLOAT_PATH_SHAPE, 1],
+                 "angles": [7.0], "route": "f64 (check_fixed fails)"}
+    out = routed("pil_rotate_nearest", lambda: rg.pil_rotate_nearest_batched(x, 7.0))
+    k = torch.from_numpy(co.fixed).to(x.device).expand(n, 6)
+    float_row["max_lsb"] = max_lsb(torch, out, rg.pil_rotate_nearest_plain(x, k, 0, fp))
+    float_row["max_lsb_vs_host_model"] = max_lsb(torch, out, torch.from_numpy(rotate_model(
+        x.cpu().numpy(), co.fixed, 0, tuple(t.cpu().numpy() for t in fp))).to(x.device))
+    torch.cuda.synchronize()
+    for r in (edge_row, float_row):
+        emit(r)
+        err = max(v for key, v in r.items() if key.startswith("max_lsb"))
+        if err != 0:
+            fail(f"parity pil_rotate_nearest {r['shape']} differs by {err} LSB")
+        errs["pil_rotate_nearest"] = max(errs["pil_rotate_nearest"], err)
+    del x, out
 
     # separable blur, row shifts and the 3-shear rotations built on them:
     # each entry point against its plain version on the same inputs
@@ -1163,13 +1313,12 @@ def main() -> int:
                                        "bilinear")
                 mode, lib_mode = "scale grid factors 0.9..1.4", "'bilinear'"
             else:
-                m = wp.rotation_matrix(cycled(ROTATION_GRID, n), w, h, device=x.device)
-                run = lambda: rg.pil_rotate_nearest(x, m, 0)
-                plain = lambda: rg.pil_rotate_nearest_plain(x, m, 0)
-                b_ms, b_by = bound_rotate(torch, x, m)
-                mm = m.view(n, 6, 1, 1)
-                lib = grid_sample_call(torch, x, (mm[:, 0] * xo + mm[:, 1] * yo) + mm[:, 2],
-                                       (mm[:, 3] * xo + mm[:, 4] * yo) + mm[:, 5], "nearest")
+                k = rotate_coeffs(torch, cycled(ROTATION_GRID, n), w, h, x.device)
+                run = lambda: rg.pil_rotate_nearest(x, k, 0)
+                plain = lambda: rg.pil_rotate_nearest_plain(x, k, 0)
+                b_ms, b_by = bound_rotate(torch, x, k)
+                extra = {"modes": rotate_modes(torch, rg, run_launches_by_label)}
+                lib = rotate_library_call(torch, x, k)
                 mode, lib_mode = "rotation grid angles -22.5..22.5, fill 0", "'nearest'"
             library_ms = time_ms(torch, lib, 20)
             library_note = LIBRARY_NOTE.format(mode=lib_mode)

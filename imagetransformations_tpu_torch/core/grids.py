@@ -41,9 +41,17 @@ PARAM_GRIDS: dict[str, ParamGrid] = {
 }
 
 
+def sample_indices(generator: torch.Generator, name: str,
+                   n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Draw ``n`` i.i.d. grid values for transform ``name`` -> (int64 [n]
+    their indices into ``PARAM_GRIDS[name].values()``, f32 [n] the values),
+    on the generator's device."""
+    vals = torch.from_numpy(PARAM_GRIDS[name].values()).to(generator.device)
+    idx = torch.randint(0, vals.shape[0], (n,), generator=generator, device=generator.device)
+    return idx, vals[idx]
+
+
 def sample_params(generator: torch.Generator, name: str, n: int) -> torch.Tensor:
     """Draw ``n`` i.i.d. grid values for transform ``name`` -> f32 [n] on the
     generator's device."""
-    vals = torch.from_numpy(PARAM_GRIDS[name].values()).to(generator.device)
-    idx = torch.randint(0, vals.shape[0], (n,), generator=generator, device=generator.device)
-    return vals[idx]
+    return sample_indices(generator, name, n)[1]

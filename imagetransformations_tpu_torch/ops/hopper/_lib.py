@@ -7,8 +7,9 @@ builds anew and an unchanged one is reused. Nothing is built at import:
 the first :func:`load` builds every missing library, all ``nvcc`` processes
 started together. A failed build raises.
 
-Each library exports C entry points (one named like the library, and
-``shear_rows`` also ``shear_cols``) that take every pointer and the stream
+Each library exports C entry points (one named like the library;
+``shear_rows`` also ``shear_cols``, ``rotate_nearest`` also
+``rotate_nearest_float``) that take every pointer and the stream
 as ``void*`` and return a CUDA error code (0 on success).
 """
 
@@ -60,8 +61,11 @@ SIGNATURES = {
                    "shear_cols": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
     # x, out, factors, n, h, w, c, stream
     "zoom_bilinear": {"zoom_bilinear": (_P, _P, _P, _I, _I, _I, _I, _P)},
-    # x, out, mats, n, h, w, c, fill, stream
-    "rotate_nearest": {"rotate_nearest": (_P, _P, _P, _I, _I, _I, _I, _I, _P)},
+    # rotate_nearest: x, out, coeffs, coeff_stride, n, h, w, c, fill, stream;
+    # rotate_nearest_float: x, out, images, rows, steps, m, h, w, c, fill,
+    # stream
+    "rotate_nearest": {"rotate_nearest": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+                       "rotate_nearest_float": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
     # x, out, taps, tap_stride, tap_width, n, h, w, c, stream
     "blur_separable": {"blur_separable": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
 }

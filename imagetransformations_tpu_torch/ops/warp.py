@@ -4,11 +4,13 @@ exact LANCZOS scale.
 
 Counterpart of ``imagetransformations_tpu/ops/warp.py``. ``affine_warp``
 is a plain PyTorch gather with PIL's sampling conventions (XLA code in the
-JAX package, no Pallas kernel); ``apply_rotation`` and ``random_zoom``
-route u8 batches in the kernels' range to the hand-written CUDA kernels
-(``pil_rotate_nearest_batched``, ``zoom_bilinear_batched``), as the JAX
-package routes them to its Pallas kernels. Every op runs on the image
-tensor's device.
+JAX package, no Pallas kernel); ``random_zoom`` routes u8 batches in the
+kernel's range to the hand-written CUDA kernel ``zoom_bilinear_batched``,
+as the JAX package routes it to its Pallas kernel, and ``apply_rotation``
+sends every u8 batch, at any angle, to Pillow's fixed-point NEAREST gather
+``pil_rotate_nearest_batched`` (exact against Pillow; the JAX package's
+f32 warps are not, ROADMAP C.2.9). Every op runs on the image tensor's
+device.
 
 The LANCZOS scale (``apply_scale_batched`` and, with one factor,
 ``apply_scale``; XLA einsums in the JAX package) is the reference's apply_scale (LANCZOS resize, then centre crop
@@ -21,9 +23,10 @@ so a float64 matrix product holds each one exactly (53-bit mantissa); the
 result is converted to int64 and shifted. f32 (and TF32 above all) is not
 exact, and CUDA has no int64 matrix product.
 
-``pil_rotate_matrix``, ``shear_matrix``, ``shear_out_width``,
-``resize_coeffs`` and its filters are this package's copies of the JAX
-package's numpy oracle (``oracle/warp.py``).
+``pil_rotate_matrix`` (defined beside the rotation kernel's wrapper),
+``shear_matrix``, ``shear_out_width``, ``resize_coeffs`` and its filters
+are this package's copies of the JAX package's numpy oracle
+(``oracle/warp.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +39,10 @@ import torch
 
 from imagetransformations_tpu_torch.core.image import as_batch, as_float, restore_layout
 from imagetransformations_tpu_torch.ops.hopper.resample import zoom_bilinear_batched
-from imagetransformations_tpu_torch.ops.hopper.rotate_gather import pil_rotate_nearest_batched
+from imagetransformations_tpu_torch.ops.hopper.rotate_gather import (  # noqa: F401
+    pil_rotate_matrix,
+    pil_rotate_nearest_batched,
+)
 
 PRECISION_BITS = 22  # PIL: 32 - 8 - 2
 F32 = torch.float32
@@ -97,25 +103,6 @@ def compose_matrices(m_outer: torch.Tensor, m_inner: torch.Tensor) -> torch.Tens
     r4 = b[:, 3] * a[:, 1] + b[:, 4] * a[:, 4]
     r5 = b[:, 3] * a[:, 2] + b[:, 4] * a[:, 5] + b[:, 5]
     return torch.stack([r0, r1, r2, r3, r4, r5], dim=-1)
-
-
-def pil_rotate_matrix(angle_deg: float, w: int, h: int) -> tuple:
-    """PIL Image.rotate(angle, expand=False) inverse-map matrix, float64 on
-    the host (PIL negates the angle; the reference's apply_rotation(img, a)
-    is ``pil_rotate_matrix(-a, ...)``)."""
-    angle = -math.radians(angle_deg % 360.0)
-    m = [
-        round(math.cos(angle), 15),
-        round(math.sin(angle), 15),
-        0.0,
-        round(-math.sin(angle), 15),
-        round(math.cos(angle), 15),
-        0.0,
-    ]
-    cx, cy = w / 2.0, h / 2.0
-    m[2] = m[0] * (-cx) + m[1] * (-cy) + cx
-    m[5] = m[3] * (-cx) + m[4] * (-cy) + cy
-    return tuple(m)
 
 
 def shear_matrix(shear_factor: float, h: int) -> tuple:
@@ -210,20 +197,19 @@ def affine_warp(img: torch.Tensor, matrix, out_size: tuple[int, int] | None = No
 def apply_rotation(img: torch.Tensor, angle, max_angle_deg: float | None = None) -> torch.Tensor:
     """Reference apply_rotation: PIL rotate(-angle), NEAREST, black fill.
 
-    u8 images with every |angle| <= the budget (``max_angle_deg``, default
-    45, itself <= 45) run the NEAREST rotation kernel with that budget, as
-    the JAX package routes them. Anything else takes the exact warp: a
-    Python scalar with PIL's float64 matrix, an array with
-    ``rotation_matrix`` (f32, on the image's device)."""
+    u8 images run Pillow's fixed-point NEAREST gather at any angle, a
+    scalar and an array of angles alike (``pil_rotate_nearest_batched``;
+    an angle tensor on the card costs one copy to the host). Float images
+    take the f32 warp, as in the JAX package: a Python scalar with PIL's
+    float64 matrix, an array with ``rotation_matrix`` (f32, on the image's
+    device). ``max_angle_deg`` is the JAX signature's routing budget; the
+    gather needs none, so it only documents the caller's range."""
+    del max_angle_deg  # documentation only (see above)
     x, single = as_batch(img)
     h, w = x.shape[1], x.shape[2]
-    budget = 45.0 if max_angle_deg is None else float(max_angle_deg)
-    scalar = isinstance(angle, (int, float))
-    amax = abs(float(angle)) if scalar else float(torch.as_tensor(angle).abs().max())
-    if x.dtype == torch.uint8 and amax <= budget and budget <= 45.0:
-        out = pil_rotate_nearest_batched(x, angle, max_angle_deg=budget)
-        return restore_layout(out, single)
-    if scalar:
+    if x.dtype == torch.uint8:
+        return restore_layout(pil_rotate_nearest_batched(x, angle), single)
+    if isinstance(angle, (int, float)):
         m = torch.tensor(pil_rotate_matrix(-float(angle), w, h), dtype=torch.float64).to(F32)
     else:
         m = rotation_matrix(angle, w, h, device=x.device)

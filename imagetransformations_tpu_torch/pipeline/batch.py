@@ -9,8 +9,9 @@ Three types run hand-written CUDA kernels on the card, by flag:
 
 - rotation: ``fused_blur_rotate_batched`` (strict, radius 0: the rgb
   blur-rotate kernel with per-image shifts); with
-  ``pil_parity_rotation=True`` the PIL NEAREST rotation
-  (``pil_rotate_nearest_batched``).
+  ``pil_parity_rotation=True`` Pillow's fixed-point NEAREST rotation
+  (``pil_rotate_nearest``), each image's coefficient row gathered by its
+  drawn grid index from a table kept on the device.
 - shear: the PIL BICUBIC shear (``shear_bicubic_batched``); with
   ``pil_parity_scale_shear=False`` the row-shift shear
   (``shear_rows_logrouted``).
@@ -23,12 +24,14 @@ The other five are plain PyTorch, as they are XLA code in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
-from imagetransformations_tpu_torch.core.grids import PARAM_GRIDS, sample_params
+from imagetransformations_tpu_torch.core.grids import PARAM_GRIDS, sample_indices
 from imagetransformations_tpu_torch.core.image import entry_device, to_device
 from imagetransformations_tpu_torch.ops import elementwise as ew
 from imagetransformations_tpu_torch.ops import noise as nz
@@ -39,7 +42,7 @@ from imagetransformations_tpu_torch.ops.hopper.resample import (
     shear_bicubic_batched,
     zoom_bilinear_batched,
 )
-from imagetransformations_tpu_torch.ops.hopper.rotate_gather import pil_rotate_nearest_batched
+from imagetransformations_tpu_torch.ops.hopper import rotate_gather as rg
 from imagetransformations_tpu_torch.ops.hopper.shear import shear_rows_logrouted
 
 TYPES = ("scale", "rotation", "lighten_darken", "gaussian_noise", "translation", "contrast",
@@ -128,35 +131,51 @@ _BATCHED_OPS: dict[str, Callable] = {
 def _apply_per_value(images: torch.Tensor, t: str, values: torch.Tensor) -> torch.Tensor:
     """Exact PIL semantics for the canvas-changing ops, one value an image:
     BICUBIC shear on the widened canvas cropped to w (kernel #11), LANCZOS
-    scale by fixed-point matrices, PIL NEAREST rotation (kernel #12, f32
-    coordinates: <= 0.5% boundary flips against PIL's f64)."""
+    scale by fixed-point matrices, Pillow's NEAREST rotation (kernel #12,
+    Pillow's fixed point, exact for any values: their coefficients come
+    from the host, see ``_rotation_pil`` for the sweep's drawn indices)."""
     grid = _grid({"scale": "scale", "shear": "shear", "rotation_pil": "rotation"}[t])
     if t == "shear" and min(grid) >= 0.0:
         return shear_bicubic_batched(images, values, max_shear=max(grid) + 0.05)
     if t == "scale":
         return wp.apply_scale_batched(images, values, grid)
-    if t == "rotation_pil" and max(abs(v) for v in grid) <= 45.0:
-        return pil_rotate_nearest_batched(images, values,
-                                          max_angle_deg=max(abs(v) for v in grid) + 0.5)
+    if t == "rotation_pil":
+        return rg.pil_rotate_nearest_batched(images, values)
     return _value_sweep_per_value(images, values, t, grid)
+
+
+@functools.lru_cache(maxsize=16)
+def _rotation_table(grid: tuple, w: int, h: int, device: torch.device):
+    """Pillow's coefficients of each grid angle, in grid order (int32
+    [k, 6]) on ``device``, computed on the host once a (grid, w, h); None
+    where a grid angle takes Pillow's float path (sides near 32768)."""
+    co = rg.pil_rotate_coeffs(np.asarray(grid, np.float32), w, h)
+    return None if co.flagged.any() else torch.from_numpy(co.fixed).to(device)
+
+
+def _rotation_pil(images: torch.Tensor, idx: torch.Tensor, grid: tuple) -> torch.Tensor:
+    """Pillow's rotate(-grid[i], NEAREST) of each image by its drawn grid
+    index ``i`` (``sample_indices``): each image's coefficient row is
+    gathered on the device, so no call waits for the host."""
+    n, h, w, _ = images.shape
+    table = _rotation_table(tuple(grid), w, h, images.device)
+    if table is None:
+        values = torch.tensor(grid, dtype=torch.float32)[idx.cpu()]
+        return rg.pil_rotate_nearest_batched(images, values)
+    return rg.pil_rotate_nearest(images.contiguous(), table[idx.to(images.device)], 0)
 
 
 def _value_sweep_per_value(images, values, t: str, grid: tuple):
     """Every grid value applied to the whole batch (``apply_shear`` cropped
-    to w, or ``apply_rotation``), each image taking its own value's row:
-    for grids the batched kernels do not take (a shear grid below 0, a
-    rotation grid beyond 45 degrees)."""
+    to w), each image taking its own value's row: for shear grids below 0,
+    which the batched kernel does not take."""
+    if t != "shear":
+        raise ValueError(t)
     w = images.shape[2]
     vd = torch.as_tensor(values, dtype=torch.float32, device=images.device).reshape(-1, 1, 1, 1)
     out = torch.zeros_like(images)
     for v in grid:
-        if t == "shear":
-            res = wp.apply_shear(images, v)[:, :, :w]
-        elif t == "rotation_pil":
-            res = wp.apply_rotation(images, v)
-        else:
-            raise ValueError(t)
-        out = torch.where(vd == v, res, out)
+        out = torch.where(vd == v, wp.apply_shear(images, v)[:, :, :w], out)
     return out
 
 
@@ -199,9 +218,9 @@ def apply_all_transformations(
     n = x.shape[0]
     out: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
     for t in types:
-        values = sample_params(generator, t, n)
+        idx, values = sample_indices(generator, t, n)
         if t == "rotation" and pil_parity_rotation:
-            results = _apply_per_value(x, "rotation_pil", values)
+            results = _rotation_pil(x, idx, _grid(t))
         elif t in ("shear", "scale") and pil_parity_scale_shear:
             results = _apply_per_value(x, t, values)
         elif t in _BATCHED_OPS:

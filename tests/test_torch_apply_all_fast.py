@@ -8,13 +8,16 @@ versions); each of those types is held, on the values the sweep drew,
 against the JAX functions the JAX sweep runs for it (``_zoom_fast``,
 ``_shear_fast_batched``, ``pil_rotate_nearest_batched``) and against exact
 numpy references; the other five types equal the default-flag sweep's.
-``_value_sweep_per_value`` (only reached by grids the batched kernels do
-not take) is called directly and held against the JAX function.
+``_value_sweep_per_value`` (only reached by shear grids the batched
+kernel does not take) and the PIL rotation at a grid beyond 45 degrees are
+called directly and held against the JAX function (and the rotation
+against PIL itself, 0 LSB).
 """
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import jax.numpy as jnp
 
@@ -145,27 +148,32 @@ def test_value_sweep_shear_matches_jax(rng):
 
 
 def test_value_sweep_rotation_beyond_45_matches_jax(rng):
-    """A rotation grid with 60 degrees (the warp route) and angles the
-    kernel takes: <= 0.5% of pixels in each image against the JAX
-    function."""
+    """A rotation grid with 60 degrees runs the PIL rotation kernel like
+    any other: PIL's rotate(-v) of each image's value at 0 LSB; against the
+    JAX per-value sweep (its kernel within 45 degrees, its f32 warp beyond)
+    <= 0.5% of pixels in each image for |v| <= 45, <= 2.5% beyond (ROADMAP
+    C.2.9). The per-value sweep itself takes shear grids only."""
     imgs = rng.integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
     vals = np.asarray([60.0, -22.5, 15.0, 0.0, 60.0, -22.5], np.float32)
     grid = (-22.5, 0.0, 15.0, 60.0)
-    out = tbatch._value_sweep_per_value(torch.from_numpy(imgs), torch.from_numpy(vals),
-                                        "rotation_pil", grid).numpy()
+    idx = torch.tensor([grid.index(float(v)) for v in vals])
+    out = tbatch._rotation_pil(torch.from_numpy(imgs), idx, grid).numpy()
     want = np.asarray(jbatch._value_sweep_per_value(jnp.asarray(imgs), jnp.asarray(vals),
                                                     "rotation_pil", grid))
-    for i in range(len(imgs)):
-        assert (out[i] != want[i]).any(-1).mean() <= 0.005, i
-    with pytest.raises(ValueError):
-        tbatch._value_sweep_per_value(torch.from_numpy(imgs), torch.from_numpy(vals), "scale",
-                                      (1.0,))
+    for i, v in enumerate(vals):
+        pil = np.asarray(Image.fromarray(imgs[i]).rotate(-float(v)))
+        np.testing.assert_array_equal(out[i], pil, err_msg=str(v))
+        assert (out[i] != want[i]).any(-1).mean() <= (0.005 if abs(v) <= 45 else 0.025), i
+    for t in ("scale", "rotation_pil"):
+        with pytest.raises(ValueError):
+            tbatch._value_sweep_per_value(torch.from_numpy(imgs), torch.from_numpy(vals), t,
+                                          (1.0,))
 
 
 def test_apply_per_value_routes_grids_beyond_the_kernels(rng, monkeypatch):
-    """A rotation grid beyond 45 degrees and a shear grid below 0 take the
-    per-value sweep, as in the JAX package; the default grids take the
-    kernels."""
+    """A shear grid below 0 takes the per-value sweep, as in the JAX
+    package; the default grids, and a rotation grid beyond 45 degrees,
+    take the kernels."""
     imgs = torch.from_numpy(rng.integers(0, 256, (2, 16, 16, 3), dtype=np.uint8))
     calls = []
     monkeypatch.setattr(tbatch, "_value_sweep_per_value",
@@ -174,6 +182,7 @@ def test_apply_per_value_routes_grids_beyond_the_kernels(rng, monkeypatch):
     tbatch._apply_per_value(imgs, "shear", torch.zeros(2))
     assert calls == []
     monkeypatch.setattr(tbatch, "_grid", lambda name: (-60.0, 0.0, 60.0))
-    tbatch._apply_per_value(imgs, "rotation_pil", torch.zeros(2))
+    out = tbatch._apply_per_value(imgs, "rotation_pil", torch.tensor([60.0, -60.0]))
     tbatch._apply_per_value(imgs, "shear", torch.zeros(2))
-    assert calls == [("rotation_pil", (-60.0, 0.0, 60.0)), ("shear", (-60.0, 0.0, 60.0))]
+    assert calls == [("shear", (-60.0, 0.0, 60.0))]
+    assert torch.equal(out, tbatch.rg.pil_rotate_nearest_batched(imgs, [60.0, -60.0]))

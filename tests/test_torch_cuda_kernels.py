@@ -187,21 +187,90 @@ def test_zoom_bilinear_equals_plain(rng, cuda, shape):
     assert torch.equal(out.cpu(), rs.zoom_bilinear_plain(x.cpu(), f.cpu()))
 
 
+ROTATION_ANGLES = [-22.5 + 2.5 * i for i in range(19)] + [45.0, -45.0, 60.0, -90.0, 135.0,
+                                                         180.0, 179.0, 13.37]
+
+
 @pytest.mark.parametrize("shape", NEW_KERNEL_SHAPES)
 def test_pil_rotate_nearest_equals_plain(rng, cuda, shape):
-    """The matrices are computed once on the card and fed to the kernel
-    and to its plain version (the card's sin may differ by an ulp from the
-    CPU's)."""
+    """The coefficients are host integers, so the kernel equals the plain
+    version on the card and on the CPU bit for bit."""
     n, h, w, _ = shape
     x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
-    angles = np.resize(np.asarray([-22.5 + 2.5 * i for i in range(19)] + [45.0, -45.0],
-                                  np.float32), n)
-    m = wp.rotation_matrix(angles, w, h, device=cuda)
+    angles = np.resize(np.asarray(ROTATION_ANGLES, np.float32), n)
+    coeffs = torch.from_numpy(rg.pil_rotate_coeffs(angles, w, h).fixed).to(cuda)
     before = mk.LAUNCHES["pil_rotate_nearest"]
     out = rg.pil_rotate_nearest_batched(x, angles, fill=7)
     torch.cuda.synchronize()
     assert mk.LAUNCHES["pil_rotate_nearest"] == before + 1
-    assert torch.equal(out, rg.pil_rotate_nearest_plain(x, m, 7))
+    assert torch.equal(out, rg.pil_rotate_nearest_plain(x, coeffs, 7))
+    assert torch.equal(out.cpu(), rg.pil_rotate_nearest_batched(x.cpu(), angles, fill=7))
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("hw", [(32, 32), (37, 53), (7, 1), (1, 9), (130, 70)])
+def test_pil_rotate_nearest_kernel_cases_equal_plain(rng, cuda, c, hw):
+    """c 1-5, w = 1 and h = 1, tiles with ragged ends, every angle of
+    ROTATION_ANGLES (one an image, and one for the batch)."""
+    h, w = hw
+    n = len(ROTATION_ANGLES)
+    x = torch.from_numpy(rng.integers(0, 256, (n, h, w, c), dtype=np.uint8)).to(cuda)
+    a = np.asarray(ROTATION_ANGLES, np.float32)
+    want = rg.pil_rotate_nearest_batched(x.cpu(), a, fill=9)
+    assert torch.equal(rg.pil_rotate_nearest_batched(x, a, fill=9).cpu(), want)
+    one = rg.pil_rotate_nearest_batched(x, 135.0)
+    assert torch.equal(one.cpu(), rg.pil_rotate_nearest_batched(x.cpu(), 135.0))
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_pil_rotate_nearest_takes_an_odd_data_ptr(rng, cuda, c):
+    """A contiguous view whose data starts at an odd address: unaligned
+    rows, byte loads and stores."""
+    base = torch.from_numpy(rng.integers(0, 256, (4, 37, 23, c), dtype=np.uint8)).to(cuda)
+    x = base[1:]
+    assert x.is_contiguous() and (c == 4 or x.data_ptr() % 2 == 1)
+    xo = torch.from_numpy(rng.integers(0, 256, (4 * 37 * 23 * c + 1,),
+                                       dtype=np.uint8)).to(cuda)[1:].view(4, 37, 23, c)
+    for img in (x, xo):
+        a = np.asarray([-60.0, 12.5, 90.0, 180.0][: img.shape[0]], np.float32)
+        got = rg.pil_rotate_nearest_batched(img, a)
+        assert torch.equal(got.cpu(), rg.pil_rotate_nearest_batched(img.cpu(), a))
+
+
+def test_pil_rotate_nearest_full_sweep_shapes_and_tall_images(rng, cuda):
+    """4096x32x32x3 on the grid; 70000 rows (no cap on h); 65537 images."""
+    x = torch.from_numpy(rng.integers(0, 256, (4096, 32, 32, 3), dtype=np.uint8)).to(cuda)
+    a = np.resize(np.asarray(ROTATION_ANGLES, np.float32), 4096)
+    assert torch.equal(rg.pil_rotate_nearest_batched(x, a).cpu(),
+                       rg.pil_rotate_nearest_batched(x.cpu(), a))
+    tall = torch.from_numpy(rng.integers(0, 256, (2, 70000, 3, 1), dtype=np.uint8)).to(cuda)
+    for angle in (0.0, 90.0, -30.0):
+        co = rg.pil_rotate_coeffs(angle, 3, 70000)
+        assert co.flagged.all()  # a corner beyond 32768: Pillow's f64 path
+        assert torch.equal(rg.pil_rotate_nearest_batched(tall, angle).cpu(),
+                           rg.pil_rotate_nearest_batched(tall.cpu(), angle))
+        # the fixed-point route alone at 70000 rows, its sums wrapping
+        k = torch.from_numpy(co.fixed)
+        assert torch.equal(rg.pil_rotate_nearest(tall, k.to(cuda).expand(2, 6)).cpu(),
+                           rg.pil_rotate_nearest_plain(tall.cpu(), k, 0))
+    many = torch.from_numpy(rng.integers(0, 256, (65537, 3, 4, 1), dtype=np.uint8)).to(cuda)
+    a = np.resize(np.asarray(ROTATION_ANGLES, np.float32), 65537)
+    assert torch.equal(rg.pil_rotate_nearest_batched(many, a).cpu(),
+                       rg.pil_rotate_nearest_batched(many.cpu(), a))
+
+
+def test_pil_rotate_nearest_float_path_equals_plain(rng, cuda):
+    """1x3x40000x1 (Pillow's f64 path: every angle flagged) and a batch
+    mixing flagged and fixed-point images (90 degrees fits at 3x40000)."""
+    x = torch.from_numpy(rng.integers(0, 256, (3, 3, 40000, 1), dtype=np.uint8)).to(cuda)
+    a = np.asarray([7.0, 90.0, 180.0], np.float32)
+    assert rg.pil_rotate_coeffs(a, 40000, 3).flagged.tolist() == [True, False, True]
+    before = mk.LAUNCHES["pil_rotate_nearest"]
+    got = rg.pil_rotate_nearest_batched(x, a)
+    assert mk.LAUNCHES["pil_rotate_nearest"] == before + 1
+    assert torch.equal(got.cpu(), rg.pil_rotate_nearest_batched(x.cpu(), a))
+    one = rg.pil_rotate_nearest_batched(x[:1], 7.0)
+    assert torch.equal(one.cpu(), rg.pil_rotate_nearest_batched(x[:1].cpu(), 7.0))
 
 
 def test_warp_ops_route_to_the_kernels_on_the_card(rng, cuda):
@@ -212,8 +281,10 @@ def test_warp_ops_route_to_the_kernels_on_the_card(rng, cuda):
     assert mk.LAUNCHES["zoom_bilinear"] == before["zoom_bilinear"] + 1
     assert rot.device.type == "cuda" and zoom.device.type == "cuda"
     assert torch.equal(zoom, wp.affine_warp(x, wp.zoom_matrix(1.2, 45, 40), method="bilinear"))
-    m = wp.rotation_matrix(12.5, 45, 40, device=cuda)
-    assert torch.equal(rot, wp.affine_warp(x, m, method="nearest"))
+    assert torch.equal(rot.cpu(), wp.apply_rotation(x.cpu(), 12.5))
+    rot135 = wp.apply_rotation(x, np.asarray([135.0, -60.0], np.float32))
+    assert mk.LAUNCHES["pil_rotate_nearest"] == before["pil_rotate_nearest"] + 2
+    assert torch.equal(rot135.cpu(), wp.apply_rotation(x.cpu(), [135.0, -60.0]))
 
 
 # ---------------------------------------------------------------- separable blur
@@ -524,9 +595,8 @@ def test_apply_all_on_the_card_binds_values_to_the_cpu_ops(rng, cuda):
 
 @pytest.mark.parametrize("fast,rotation", [(True, False), (True, True), (False, True)])
 def test_apply_all_flags_on_the_card_bind_values_to_the_cpu_ops(rng, cuda, fast, rotation):
-    """The fast scale and shear bit-equal to the CPU route; the PIL
-    rotation equal to its plain version on the card (the card's rotation
-    matrices, see above)."""
+    """The fast scale and shear and the PIL rotation (host coefficients)
+    bit-equal to the CPU route on the values the card drew."""
     imgs = rng.integers(0, 256, (4, 40, 48, 3), dtype=np.uint8)
     flags = {"pil_parity_scale_shear": not fast, "pil_parity_rotation": rotation}
     res = apply_all_transformations(imgs, 11, **flags)
@@ -537,8 +607,7 @@ def test_apply_all_flags_on_the_card_bind_values_to_the_cpu_ops(rng, cuda, fast,
         if t == "gaussian_noise":
             continue
         if t == "rotation" and rotation:
-            m = wp.rotation_matrix(values, 48, 40, device=cuda)
-            assert torch.equal(out, rg.pil_rotate_nearest_plain(x.to(cuda), m, 0))
+            assert torch.equal(out.cpu(), batch._apply_per_value(x, "rotation_pil", values.cpu()))
             continue
         ref = _apply_type(t, x, values.cpu(), pil_parity=not fast)
         assert torch.equal(out.cpu(), ref), t

@@ -104,7 +104,12 @@ def main() -> int:
         emit("zoom_bilinear", shape, "f64 oracle", **values(out, ref))
         emit("zoom_bilinear (jax kernel itself)", shape, "f64 oracle", **values(want, ref))
 
-    # NEAREST rotation (kernel #12)
+    # NEAREST rotation (kernel #12): Pillow's fixed point, so 0 pixels
+    # differ from PIL; the JAX package's f32 coordinates (its kernel within
+    # 45 degrees, apply_rotation's warp beyond) and the f64 oracle differ
+    def pil_rotate(im, ang):
+        return np.asarray(Image.fromarray(im).rotate(-float(ang), fillcolor=(0, 0, 0)))
+
     cases = [((4, 32, 32), [-20.0, 0.0, 10.0, 22.5]), ((2, 37, 53), [7.0, -44.0]),
              ((1, 96, 64), [22.5]), ((3, 40, 24), [-7.5, 2.5, 17.5]),
              ((2, 32, 32), [45.0, -45.0])]
@@ -114,10 +119,20 @@ def main() -> int:
         out = pil_rotate_nearest_batched(torch.from_numpy(imgs), a).numpy()
         want = np.asarray(jrg.pil_rotate_nearest_batched(jnp.asarray(imgs), jnp.asarray(a)))
         for i, ang in enumerate(a):
-            pil = np.asarray(Image.fromarray(imgs[i]).rotate(-float(ang), fillcolor=(0, 0, 0)))
-            emit("pil_rotate_nearest", (h, w, float(ang)), "jax kernel / PIL / f64 oracle",
-                 jax=pixels(out[i], want[i])["pixel_frac"], pil=pixels(out[i], pil)["pixel_frac"],
+            emit("pil_rotate_nearest", (h, w, float(ang)), "PIL / jax kernel / f64 oracle",
+                 pil=pixels(out[i], pil_rotate(imgs[i], ang))["pixel_frac"],
+                 jax=pixels(out[i], want[i])["pixel_frac"],
                  oracle=pixels(out[i], oww.apply_rotation(imgs[i], float(ang)))["pixel_frac"])
+    beyond = [60.0, -60.0, 90.0, 135.0, -135.0, 179.0]
+    for h, w in ((32, 32), (23, 37), (17, 5), (48, 64)):
+        imgs = np.random.default_rng(1234).integers(0, 256, (1, h, w, 3), dtype=np.uint8)
+        for ang in beyond:
+            out = port.apply_rotation(torch.from_numpy(imgs), ang).numpy()[0]
+            want = np.asarray(jwp.apply_rotation(jnp.asarray(imgs), ang))[0]
+            emit("apply_rotation u8 beyond 45", (h, w, ang), "PIL / jax apply_rotation",
+                 pil=pixels(out, pil_rotate(imgs[0], ang))["pixel_frac"],
+                 jax=pixels(out, want)["pixel_frac"],
+                 jax_vs_pil=pixels(want, pil_rotate(imgs[0], ang))["pixel_frac"])
 
     # the sweep with both non-default flags, as tests/test_torch_apply_all_fast.py runs it
     imgs = np.random.default_rng(7).integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
@@ -130,9 +145,11 @@ def main() -> int:
     emit("apply_all fast shear", imgs.shape, "jax _shear_fast_batched",
          **values(res["shear"][1].numpy(), jbatch._shear_fast_batched(x, v["shear"], 1.0)))
     want = np.asarray(jrg.pil_rotate_nearest_batched(x, v["rotation"], max_angle_deg=23.0))
-    emit("apply_all PIL rotation", imgs.shape, "jax pil_rotate_nearest_batched",
-         pixel_frac_max=max(pixels(res["rotation"][1].numpy()[i], want[i])["pixel_frac"]
-                            for i in range(len(imgs))))
+    got = res["rotation"][1].numpy()
+    emit("apply_all PIL rotation", imgs.shape, "PIL / jax pil_rotate_nearest_batched",
+         pil_pixel_frac_max=max(pixels(got[i], pil_rotate(imgs[i], a))["pixel_frac"]
+                                for i, a in enumerate(res["rotation"][0].tolist())),
+         pixel_frac_max=max(pixels(got[i], want[i])["pixel_frac"] for i in range(len(imgs))))
 
     # the per-grid-value sweep
     rng = np.random.default_rng(1234)
@@ -146,11 +163,13 @@ def main() -> int:
     imgs = np.random.default_rng(1234).integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
     vals = np.asarray([60.0, -22.5, 15.0, 0.0, 60.0, -22.5], np.float32)
     grid = (-22.5, 0.0, 15.0, 60.0)
-    out = tbatch._value_sweep_per_value(torch.from_numpy(imgs), torch.from_numpy(vals),
-                                        "rotation_pil", grid).numpy()
+    idx = torch.tensor([grid.index(float(v)) for v in vals])
+    out = tbatch._rotation_pil(torch.from_numpy(imgs), idx, grid).numpy()
     want = np.asarray(jbatch._value_sweep_per_value(jnp.asarray(imgs), jnp.asarray(vals),
                                                     "rotation_pil", grid))
-    emit("_value_sweep_per_value rotation_pil", imgs.shape, "jax",
+    emit("PIL rotation, grid beyond 45", imgs.shape, "PIL / jax _value_sweep_per_value",
+         pil_pixel_frac_max=max(pixels(out[i], pil_rotate(imgs[i], a))["pixel_frac"]
+                                for i, a in enumerate(vals)),
          pixel_frac_max=max(pixels(out[i], want[i])["pixel_frac"] for i in range(len(imgs))))
 
     # affine_warp against JAX and the f64 oracles
