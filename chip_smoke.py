@@ -5,7 +5,9 @@
 
 Builds the hand-written CUDA kernels from ``imagetransformations_tpu_torch/
 csrc`` with nvcc, holds each against its plain PyTorch version on the card
-at full size (0 LSB; the NEAREST rotation also against a numpy model of
+at full size (0 LSB: the blur #6 / #6b in cv2's integers with the sweep's
+tap table, the BICUBIC shear #11 with the sweep's int32 canvas shifts; the
+NEAREST rotation also against a numpy model of
 Pillow's fixed point on the host, on the grid, beyond 45 degrees and on
 Pillow's f64 route), drives the main paths (``build_chain_fn`` with static
 and per-image angles, in strict mode (also a strict rotation of 135
@@ -31,7 +33,12 @@ and the sweep's use at 4096x32x32, and the BICUBIC shear's, the
 bilinear zoom's and the NEAREST rotation's entries a row at 4096x32x32 (the sweeps' CIFAR use; their
 parity cases add the shear budget's edge 1.05, negative factors and
 random_zoom at 0.5 and 4); phase ``geometry`` times the luma kernel's
-band rows and images a block at 4096x32x32 and 32x512x512.
+band rows and images a block at 4096x32x32 and 32x512x512. Before those,
+phase ``trig`` holds the per-image shifts and rotation matrices computed on
+the card to the CPU's bit for bit, and phase ``folder`` runs the
+reference's main script: folders of JPEGs (32 at 512x512, 512 at 32x32)
+through ``python -m imagetransformations_tpu_torch transform`` and
+``chain``, with stage seconds, images a second and the card's busy share.
 Prints one JSON line per phase; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
@@ -154,13 +161,15 @@ NO_LIBRARY_BLUR_ROTATE = "no single PyTorch call computes blur + 3-shear rotatio
 LIBRARY_NOTE = ("F.grid_sample(mode={mode}, padding_mode='zeros', align_corners=False) on the "
                 "f32 NCHW batch, grid precomputed outside the timed region: samples the same "
                 "points up to border and rounding rules, not bit-equal; f32 in and out")
-BLUR_LIBRARY_NOTE = ("F.conv2d of the KxK outer product of the taps, groups=3, on the reflect-"
-                     "padded f32 NCHW batch (padding outside the timed region), TF32 off: the "
-                     "same filter summed in another order, not bit-equal; f32 in and out")
+BLUR_LIBRARY_NOTE = ("F.conv2d of the KxK outer product of the integer taps / 256 in f32, "
+                     "groups=3, on the reflect-padded f32 NCHW batch (padding outside the timed "
+                     "region), TF32 off: the same filter in f32, not bit-equal to cv2's integer "
+                     "sums; f32 in and out")
 BLUR_BATCHED_LIBRARY_NOTE = (
-    "F.conv2d of each image's 31x31 outer product of its zero-padded tap row, groups=3n, on "
-    "the reflect-padded f32 batch as one [1, 3n, h+30, w+30] image (padding outside the timed "
-    "region), TF32 off: the same filters summed in another order, not bit-equal; f32 in and out")
+    "F.conv2d of each image's 31x31 outer product of its zero-padded integer tap row / 256 in "
+    "f32, groups=3n, on the reflect-padded f32 batch as one [1, 3n, h+30, w+30] image (padding "
+    "outside the timed region), TF32 off: the same filters in f32, not bit-equal to cv2's "
+    "integer sums; f32 in and out")
 
 
 def emit(obj) -> None:
@@ -265,10 +274,10 @@ def bound(n, h, w, c_in, c_out, ops_per_px):
     return bound_of(px * (c_in + c_out), px * ops_per_px)
 
 
-def bound_of(nbytes, ops):
+def bound_of(nbytes, ops, rate=UNFUSED_OPS_PER_S):
     """(bound_ms, bound_by) of a call that must move ``nbytes`` and do
-    ``ops`` unfused operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / UNFUSED_OPS_PER_S
+    ``ops`` operations at ``rate`` a second (by default unfused f32)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -286,20 +295,30 @@ def ops_rgb(p: int, strict: bool, gray: bool, identity: bool) -> int:
 
 
 def ops_blur(k: int) -> int:
-    # per value: cvt, K mul + K-1 add a pass (two passes), rint, clip (2), cvt
-    return 1 + 2 * (2 * k - 1) + 4
+    # cv2's integer blur, per value: K multiply-adds a pass (two passes) and
+    # the shift; the rounding term 2^15 starts the sum. Every partial sum is
+    # an integer below 2^24, exact as an f32 FMA, so each counts at the
+    # unfused f32 rate (an FMA a lane a clock), as the kernel's horizontal
+    # pass runs them; the shift is one FMA there too
+    return 2 * k + 1
 
 
-def bound_blur_batched(torch, x, radii):
-    """Per-image blur: each image at radius r > 0 does ops_blur(K) a value
-    with its own K; an image at radius 0 is a copy (no operations). Reads
-    the batch and the [n, 31] f32 tap rows, writes the batch."""
-    from imagetransformations_tpu_torch.ops import stencil as st
+def bound_blur(x, taps):
+    """cv2's integer blur with one int32 tap row of K taps: reads and
+    writes the batch and reads the row; ops_blur(K) operations a value."""
+    return bound_of(2 * x.numel() + taps.numel() * 4, x.numel() * ops_blur(taps.numel()))
 
+
+def bound_blur_batched(torch, x, taps):
+    """Per-image blur: each image does ops_blur(K) a value with its own
+    K, the taps between its row's outer nonzero ones; an image at radius 0
+    (the delta row) is a copy (no operations). Reads the batch and the
+    int32 tap rows, writes the batch."""
     n, h, w, c = x.shape
-    taps = st.blur_taps_batched(radii)
-    k = (taps != 0).sum(1)
-    ops = int(torch.where(radii > 0, 4 * k + 3, 0).sum().item()) * h * w * c
+    nz = taps != 0
+    first = nz.int().argmax(1)
+    k = taps.shape[1] - 2 * first
+    ops = int(torch.where(k > 1, ops_blur(k), 0).sum().item()) * h * w * c
     return bound_of(2 * x.numel() + taps.numel() * 4, ops)
 
 
@@ -341,7 +360,8 @@ def bound_shear_bicubic(torch, x, factors):
     a source value read; per row t (2), per image m2 (2)."""
     n, h, w, c = x.shape
     s = factors.reshape(n, 1, 1)
-    m2 = -torch.where(s > 0, torch.ceil(s * float(h)), 0.0)
+    v = s.to(torch.float64)  # the canvas shift: PIL's f64 ceil(s*h), as the kernel takes it
+    m2 = -torch.where(v > 0, torch.ceil(v * float(h)), 0.0).to(torch.float32)
     xo = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, w) + 0.5
     yo = torch.arange(h, dtype=torch.float32, device=x.device).view(1, h, 1) + 0.5
     xx = (xo + s * yo) + m2
@@ -638,7 +658,7 @@ def check_sweep(torch, x, res, kind: str) -> dict:
             fail(f"apply_all {t}: values {tuple(values.shape)}, out {tuple(out.shape)} {out.dtype}")
         if out.device != x.device:
             fail(f"apply_all {t}: output on {out.device}")
-    plain = {"blur": st.blur_batched_plain(x, res["blur"][0])}
+    plain = {"blur": st.blur_batched_plain(x, res["blur"][0])}  # host rows of the drawn radii
     values = res["rotation"][0]
     if kind == "apply_all_fast":
         plain["rotation"] = rg.pil_rotate_nearest_plain(
@@ -653,7 +673,10 @@ def check_sweep(torch, x, res, kind: str) -> dict:
         k1, f1, k2, f2, ident = mk._traced_params(values, n, h, w, APPLY_ALL_BUDGET, x.device)
         plain["rotation"] = mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0, True, False,
                                                      ident)
-        plain["shear"] = rs.shear_bicubic_plain(x, res["shear"][0])
+        # the grid's f64 canvas shifts, by each drawn value's grid index
+        values = res["shear"][0]
+        plain["shear"] = rs.shear_bicubic_plain(x, values, sweep_shear_shifts(torch, batch,
+                                                                              values, h))
     lsb = {t: max_lsb(torch, res[t][1], ref) for t, ref in plain.items()}
     for t, v in lsb.items():
         if v != 0:
@@ -719,8 +742,11 @@ def resample_modes(torch, rs, kernel, run_launches) -> list:
     x = images(torch, SHAPE_32, SEED + 104)
     library = None  # no single PyTorch call for the BICUBIC shear (NO_LIBRARY)
     if kernel == "shear_bicubic":
+        from imagetransformations_tpu_torch.pipeline import batch
+
         f = torch.from_numpy(cycled(SHEAR_GRID, n)).to(x.device)
-        run, plain = lambda: rs.shear_bicubic(x, f), lambda: rs.shear_bicubic_plain(x, f)
+        m = sweep_shear_shifts(torch, batch, f, h)  # outside the timing
+        run, plain = lambda: rs.shear_bicubic(x, f, m), lambda: rs.shear_bicubic_plain(x, f, m)
         b, label = bound_shear_bicubic(torch, x, f), "apply_all_transformations 32 (cifar)"
         mode = "grid factors 0..1"
     else:
@@ -740,6 +766,15 @@ def resample_modes(torch, rs, kernel, run_launches) -> list:
     row["plain_ms"] = time_ms(torch, plain, 5)
     row["library_ms"] = None if library is None else time_ms(torch, library, 20)
     return [row]
+
+
+def sweep_shear_shifts(torch, batch, factors, h):
+    """The sweep's int32 canvas shifts of shear grid values: the grid's f64
+    table gathered by each value's grid index (0.1 steps)."""
+    idx = torch.round(factors * 10.0).to(torch.int64)
+    from imagetransformations_tpu_torch.ops.hopper.resample import shear_shift_table
+
+    return shear_shift_table(batch._grid_f64("shear"), h, factors.device)[idx]
 
 
 def rotate_library_call(torch, x, coeffs):
@@ -769,6 +804,185 @@ def rotate_modes(torch, rg, run_launches) -> list:
     row["plain_ms"] = time_ms(torch, lambda: rg.pil_rotate_nearest_plain(x, k, 0), 5)
     row["library_ms"] = time_ms(torch, rotate_library_call(torch, x, k), 20)
     return [row]
+
+
+def trig_phase(torch) -> dict:
+    """The per-image shifts (``megakernel._traced_params``) and rotation
+    matrices (``warp.rotation_matrix``) computed on the card equal the CPU's
+    bit for bit: on the rotation grid and on 512 seeded random angles."""
+    import numpy as np
+
+    from imagetransformations_tpu_torch.ops import warp as wp
+    from imagetransformations_tpu_torch.ops.hopper import megakernel as mk
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    rand = np.random.default_rng(SEED + 9).uniform(-180.0, 180.0, 512).astype(np.float32)
+    row = {"phase": "trig", "angles": {"grid": len(ROTATION_GRID), "random": len(rand)}}
+    for name, angles, budget in (("grid", np.float32(ROTATION_GRID), APPLY_ALL_BUDGET),
+                                 ("random", rand, 180.0)):
+        a = torch.from_numpy(angles)
+        n, (h, w) = a.numel(), SHAPE_512[1:]
+        card = mk._traced_params(a.to(dev), n, h, w, budget, dev)
+        host = mk._traced_params(a, n, h, w, budget, cpu)
+        row[f"traced_params_{name}_differ"] = sum(int((c.cpu() != v).sum()) for c, v in
+                                                  zip(card, host))
+        row[f"rotation_matrix_{name}_differ"] = int(
+            (wp.rotation_matrix(a.to(dev), w, h).cpu() != wp.rotation_matrix(a, w, h)).sum())
+    emit(row)
+    bad = {k: v for k, v in row.items() if k.endswith("_differ") and v}
+    if bad:
+        fail(f"the card's shifts or matrices differ from the CPU's: {bad}")
+    return row
+
+
+def folder_phase(torch, mk) -> list:
+    """The reference's main script on the card: folders of JPEGs (32 at
+    512x512x3 and 512 at 32x32x3, written from a seed) through the
+    ``transform`` and ``chain`` commands, run as ``python -m
+    imagetransformations_tpu_torch`` runs them (``runpy``, in this process,
+    so the launch counters can be read). Each command runs three times: a
+    warm-up; the measured run, with the counters reset just before it and
+    read just after, its wall seconds, stage seconds (``--stats``) and
+    images a second end to end; and a run under torch.profiler, whose
+    device time (kernels, and copies apart) over the measured run's wall
+    time is the card's busy share (the profiler slows the host, not the
+    card). The files must equal the same codec's encoding of the same
+    computation redone here (the chain; the sweep with the same seed).
+    Without a JPEG codec (the native build and PIL both missing) the phase
+    prints what is missing and is not measured."""
+    import contextlib
+    import io as _io
+    import runpy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from imagetransformations_tpu_torch import OpSpec, apply_all_transformations
+    from imagetransformations_tpu_torch.pipeline import native_io
+    from imagetransformations_tpu_torch.pipeline.chain import build_chain_fn
+    from imagetransformations_tpu_torch.pipeline.io import load_folder_images
+
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    codecs = {"g++": shutil.which("g++"), "native": native_io.native_available(),
+              "native_error": native_io.build_error(), "pil": pil}
+    if not codecs["native"] and not pil:
+        print(f"chip_smoke: folder phase not measured: no JPEG codec (native build: "
+              f"{codecs['native_error']}; PIL not installed)", flush=True)
+        emit({"phase": "folder", "measured": False, "codecs": codecs})
+        return []
+    chain_spec = f"blur:{BLUR_RADIUS},rotation:{ANGLE},grayscale"
+    chain = [OpSpec("blur", {"radius": BLUR_RADIUS}), OpSpec("rotation", {"angle": ANGLE}),
+             OpSpec("grayscale")]
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_folder_") as tmp:
+        for n, side in ((32, 512), (512, 32)):
+            src = os.path.join(tmp, f"in{side}")
+            os.makedirs(src)
+            imgs = np.random.default_rng(SEED + side).integers(0, 256, (n, side, side, 3),
+                                                               dtype=np.uint8)
+            native_io.encode_batch(imgs, [os.path.join(src, f"im{i:04d}.jpeg") for i in range(n)])
+            for cmd in ("transform", "chain"):
+                out_dir = os.path.join(tmp, f"{cmd}{side}")
+                argv = [cmd, src, out_dir, f"--size={side}x{side}", "--stats", "--device=cuda"]
+                if cmd == "chain":
+                    argv.append(f"--ops={chain_spec}")
+
+                def run():
+                    buf, saved = _io.StringIO(), sys.argv
+                    sys.argv = ["imagetransformations_tpu_torch", *argv]
+                    try:
+                        with contextlib.redirect_stdout(buf):
+                            runpy.run_module("imagetransformations_tpu_torch", run_name="__main__",
+                                             alter_sys=True)
+                    finally:
+                        sys.argv = saved
+                    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+                run()  # warm-up: caches, first launches
+                torch.cuda.synchronize()
+                for k in mk.LAUNCHES:
+                    mk.LAUNCHES[k] = 0
+                t0 = time.perf_counter()
+                stats = run()
+                wall = time.perf_counter() - t0
+                launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    run()
+                device_us = {"kernels": 0.0, "copies": 0.0}
+                for e in prof.key_averages():
+                    if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                        kind = "copies" if e.key.startswith(("Memcpy", "Memset")) else "kernels"
+                        device_us[kind] += getattr(e, "self_device_time_total", 0) or 0
+                want = (("rgb_blur_rotate_traced", "shear_bicubic", "blur_separable_batched")
+                        if cmd == "transform" else
+                        ("luma_blur_rotate" if side >= 128 else "luma_blur_rotate_packed",))
+                missing = [k for k in want if not launches.get(k)]
+                if missing:
+                    fail(f"folder {cmd} {side}: kernels {missing} were not launched: {launches}")
+                if stats["images"] != n:
+                    fail(f"folder {cmd} {side}: the command read {stats['images']} of {n} images")
+                # the files against the same computation redone, encoded alike
+                x, paths = load_folder_images(src, size=(side, side), native=codecs["native"])
+                if len(paths) != n:
+                    fail(f"folder {cmd} {side}: decoded {len(paths)} of {n} images")
+                xd = torch.from_numpy(x).cuda()
+                stems = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+                if cmd == "chain":
+                    arrs = {"chained": build_chain_fn(chain)(xd).cpu().numpy()}
+                    names = {"chained": [f"{s}_chained.jpeg" for s in stems]}
+                else:
+                    res = apply_all_transformations(xd, torch.Generator("cuda").manual_seed(0))
+                    arrs = {t: a.cpu().numpy() for t, (_, a) in res.items()}
+                    names = {t: [f"{s}_{t}_{round(float(v[i]), 2)}_corrupted.jpeg"
+                                 for i, s in enumerate(stems)]
+                             for t, (v, _) in res.items()}
+                written = sorted(os.listdir(out_dir))
+                expect = sorted(nm for v in names.values() for nm in v)
+                if written != expect:
+                    fail(f"folder {cmd} {side}: {len(written)} files, expected {len(expect)} "
+                         "named by their values")
+                check = os.path.join(tmp, "check")
+                mismatched = 0
+                for t, arr in arrs.items():
+                    os.makedirs(check, exist_ok=True)
+                    paths_c = [os.path.join(check, nm) for nm in names[t][:8]]
+                    if codecs["native"]:
+                        native_io.encode_batch(arr[:8], paths_c)
+                    else:
+                        from PIL import Image
+
+                        for a, pc in zip(arr[:8], paths_c):
+                            Image.fromarray(a).save(pc)
+                    for pc, nm in zip(paths_c, names[t][:8]):
+                        with open(pc, "rb") as fa, open(os.path.join(out_dir, nm), "rb") as fb:
+                            mismatched += fa.read() != fb.read()
+                    shutil.rmtree(check)
+                if mismatched:
+                    fail(f"folder {cmd} {side}: {mismatched} files differ from the recomputation")
+                row = {"phase": "folder", "command": cmd, "images": n,
+                       "shape": [side, side, 3], "codec": "native" if codecs["native"] else "PIL",
+                       "wall_s": wall, "stage_s": {k: stats[k] for k in (
+                           "decode_s", "h2d_s", "compute_s", "d2h_s", "encode_s")},
+                       "compute_event_ms": stats.get("compute_event_ms"),
+                       "images_per_s": n / wall,
+                       "device_kernel_ms": device_us["kernels"] / 1e3,
+                       "device_copy_ms": device_us["copies"] / 1e3,
+                       "device_busy_share": (device_us["kernels"] + device_us["copies"]) / 1e6
+                       / wall if device_us["kernels"] > 0 else None,
+                       "kernel_busy_share": device_us["kernels"] / 1e6 / wall
+                       if device_us["kernels"] > 0 else None,
+                       "files": len(written), "files_checked": min(8, n) * len(arrs),
+                       "launches": launches, "codecs": codecs}
+                emit(row)
+                rows.append(row)
+                shutil.rmtree(out_dir)
+    return rows
 
 
 def mode_row(torch, mode, shape, run, want, b, launches) -> dict:
@@ -821,6 +1035,13 @@ def main() -> int:
         for name, log in reports.items()
     }
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+
+    # ---- the trig on the card equals the CPU's; the folder commands -------
+    trig_phase(torch)
+    folder_launches = {}
+    for row in folder_phase(torch, mk):
+        for k, v in row["launches"].items():
+            folder_launches[k] = folder_launches.get(k, 0) + v
 
     # ---- parity: kernel vs plain version on the card, 0 LSB -----------------
     # each case: (kernel, shape, radius, angle, fill, gray, stream)
@@ -989,6 +1210,14 @@ def main() -> int:
     errs["rgb_blur_rotate_traced"] = max(errs["rgb_blur_rotate_traced"], err)
     del x, out
 
+    # each entry point's output (routing checked by its counter)
+    def routed(kernel, entry):
+        before = mk.LAUNCHES[kernel]
+        out = entry()
+        if mk.LAUNCHES[kernel] != before + 1:
+            fail(f"{kernel}: the entry point did not route to it: {mk.LAUNCHES}")
+        return out
+
     # the shear grid, then its budget edge 1.05 (rows with no valid pixel)
     # and negative factors (no canvas shift) beside grid values
     for shape, seed in ((SHAPE_512, SEED + 24), (SHAPE_32, SEED + 25)):
@@ -1000,8 +1229,16 @@ def main() -> int:
             if mk.LAUNCHES["shear_bicubic"] != before + 1:
                 fail(f"shear_bicubic {shape}: the entry point did not route to it")
             err = max_lsb(torch, out, rs.shear_bicubic_plain(x, f))
-            emit({"phase": "parity", "kernel": "shear_bicubic", "shape": [*shape, 3],
-                  "factors": factors, "max_lsb": err})
+            row = {"phase": "parity", "kernel": "shear_bicubic", "shape": [*shape, 3],
+                   "factors": factors, "max_lsb": err}
+            if factors is SHEAR_GRID:
+                # the sweep's route: int32 canvas shifts from the grid's f64 table
+                idx = torch.round(f * 10.0).to(torch.int64)
+                row["max_lsb_table_shifts"] = max_lsb(
+                    torch, routed("shear_bicubic", lambda: batch._shear_pil(x, idx, f)),
+                    rs.shear_bicubic_plain(x, f, sweep_shear_shifts(torch, batch, f, shape[1])))
+            emit(row)
+            err = max(v for k, v in row.items() if k.startswith("max_lsb"))
             if err != 0:
                 fail(f"parity shear_bicubic {shape} {factors} differs by {err} LSB")
             errs["shear_bicubic"] = max(errs["shear_bicubic"], err)
@@ -1010,13 +1247,6 @@ def main() -> int:
     # row shift, zoom and NEAREST rotation: the parameters are computed once
     # on the card and fed to the kernel and to its plain version; each entry
     # point's output (routing checked by its counter) must equal the kernel's.
-    def routed(kernel, entry):
-        before = mk.LAUNCHES[kernel]
-        out = entry()
-        if mk.LAUNCHES[kernel] != before + 1:
-            fail(f"{kernel}: the entry point did not route to it: {mk.LAUNCHES}")
-        return out
-
     for shape, seed in ((SHAPE_512, SEED + 26), (SHAPE_32, SEED + 27)):
         x = images(torch, shape, seed)
         n, h, w = shape
@@ -1153,6 +1383,11 @@ def main() -> int:
                    want)
         parity_row("blur_separable_batched", row,
                    routed("blur_separable_batched", lambda: st.apply_blur(xb, radii)), want)
+        # the sweep's route: integer rows gathered from the grid table by index
+        idx = torch.round(radii * 2.0).to(torch.int64)
+        parity_row("blur_separable_batched", row,
+                   routed("blur_separable_batched", lambda: batch._blur_grid(xb, idx, radii)),
+                   want)
         new_rows.append(row)
         del xb, want
         if h <= 5:
@@ -1216,7 +1451,8 @@ def main() -> int:
     runs = main_path_runs()
     inputs = {label: images(torch, shape, seed) for label, _, shape, seed, *_ in runs}
     torch.cuda.synchronize()
-    launches = {k: 0 for k in mk.LAUNCHES}
+    # launches of each kernel over the folder commands and the runs below
+    launches = {k: folder_launches.get(k, 0) for k in mk.LAUNCHES}
     results = []
     drawn_radii = None  # the blur radii the default sweep drew at 32x512x512
     for label, fn, shape, _, ref, reps, kernels in runs:
@@ -1330,13 +1566,15 @@ def main() -> int:
             plain = lambda: st.gaussian_blur_plain(x, BLUR_RADIUS)
             taps = bl.blur_taps(BLUR_RADIUS, x.device)
             k = taps.numel()
-            b_ms, b_by = bound(n, h, w, 3, 3, 3 * ops_blur(k))
+            b_ms, b_by = bound_blur(x, taps)
             # the yardstick: one grouped conv2d of the KxK outer-product taps
-            # on the reflect-padded f32 NCHW batch, padded outside the timing
+            # (as f32, over 2^16) on the reflect-padded f32 NCHW batch,
+            # padded outside the timing
             p = k // 2
             xf = torch.nn.functional.pad(x.permute(0, 3, 1, 2).to(torch.float32), (p, p, p, p),
                                          mode="reflect").contiguous()
-            weight = torch.outer(taps, taps).expand(3, 1, k, k).contiguous()
+            tf = taps.to(torch.float32) / 256.0
+            weight = torch.outer(tf, tf).expand(3, 1, k, k).contiguous()
             lib = lambda: torch.nn.functional.conv2d(xf, weight, groups=3)
             library_ms, library_note = time_ms(torch, lib, 20), BLUR_LIBRARY_NOTE
             mode = f"r {BLUR_RADIUS} ({k} taps)"
@@ -1346,24 +1584,29 @@ def main() -> int:
             n, h, w = shape
             x = images(torch, shape, SEED + 100)
             radii = drawn_radii
-            taps = st.blur_taps_batched(radii)
+            # the sweep's route: each image's int32 row gathered from the
+            # grid table by its grid index (0.5 steps)
+            idx = torch.round(radii * 2.0).to(torch.int64)
+            taps = batch._blur_table(batch._grid_f64("blur"), x.device)[idx].contiguous()
             # the kernel on tap rows made outside the timing; the entry
-            # point with its taps (a few dozen PyTorch ops) is timed apart
+            # point with the gather is timed apart
             run = lambda: bl._launch(x, taps, taps.shape[1], "blur_separable_batched")
             plain = lambda: st.blur_batched_plain(x, radii)
-            b_ms, b_by = bound_blur_batched(torch, x, radii)
-            extra = {"entry_ms": time_ms(torch, lambda: bl.blur_separable_batched(x, radii), 20)}
+            b_ms, b_by = bound_blur_batched(torch, x, taps)
+            extra = {"entry_ms": time_ms(torch, lambda: batch._blur_grid(x, idx, radii), 20)}
             if not torch.equal(run(), plain()):
                 fail("blur_separable_batched differs from its plain version on the drawn radii")
             p = (taps.shape[1] - 1) // 2
             xf = torch.nn.functional.pad(x.permute(0, 3, 1, 2).to(torch.float32), (p, p, p, p),
                                          mode="reflect").reshape(1, 3 * n, h + 2 * p, w + 2 * p)
             xf = xf.contiguous()
-            weight = (taps[:, :, None] * taps[:, None, :]).repeat_interleave(3, 0)[:, None]
+            tf = taps.to(torch.float32) / 256.0
+            weight = (tf[:, :, None] * tf[:, None, :]).repeat_interleave(3, 0)[:, None]
             weight = weight.contiguous()
             lib = lambda: torch.nn.functional.conv2d(xf, weight, groups=3 * n)
             library_ms, library_note = time_ms(torch, lib, 5), BLUR_BATCHED_LIBRARY_NOTE
-            ks = sorted(set(int(k) for k in (taps != 0).sum(1).tolist()))
+            first = (taps != 0).int().argmax(1)
+            ks = sorted(set((taps.shape[1] - 2 * first).tolist()))
             mode = (f"radii drawn by apply_all (seed {SEED + 30}): "
                     f"{sorted(set(round(v, 2) for v in radii.tolist()))}, K in {ks}")
         elif kernel == COL_PASS:
@@ -1414,8 +1657,9 @@ def main() -> int:
             shape = SHAPE_512
             x = images(torch, shape, SEED + 100)
             f = torch.from_numpy(cycled(SHEAR_GRID, shape[0])).to(x.device)
-            run = lambda: rs.shear_bicubic(x, f)
-            plain = lambda: rs.shear_bicubic_plain(x, f)
+            m = sweep_shear_shifts(torch, batch, f, shape[1])  # outside the timing
+            run = lambda: rs.shear_bicubic(x, f, m)
+            plain = lambda: rs.shear_bicubic_plain(x, f, m)
             b_ms, b_by = bound_shear_bicubic(torch, x, f)
             extra = {"modes": resample_modes(torch, rs, kernel, run_launches_by_label)}
             mode = "grid factors 0..1"

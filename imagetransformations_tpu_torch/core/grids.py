@@ -23,9 +23,13 @@ class ParamGrid:
     hi: float
     step: float
 
-    def values(self) -> np.ndarray:
+    def values_f64(self) -> np.ndarray:
+        """The grid's values in f64, as the reference's Python floats."""
         n = int(round((self.hi - self.lo) / self.step)) + 1
-        return np.round(self.lo + self.step * np.arange(n), 10).astype(np.float32)
+        return np.round(self.lo + self.step * np.arange(n), 10)
+
+    def values(self) -> np.ndarray:
+        return self.values_f64().astype(np.float32)
 
 
 #: The reference's transform-value bounds (transformation.py:95-105).

@@ -54,6 +54,15 @@ def as_float(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float32 else x.to(torch.float32)
 
 
+def trig_f32(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` (``torch.tan``, ``torch.sin``, ``torch.cos``) of the f32 tensor
+    ``x``, taken in f64 and rounded to f32 on ``x``'s device: the correctly
+    rounded f32 value, the same on every device. PyTorch's f32 kernels (on
+    the CPU, and the card's ``tanf``/``sinf``/``cosf``) and XLA's differ from
+    it, and from each other, by an ulp on some arguments."""
+    return fn(x.to(torch.float64)).to(torch.float32)
+
+
 def to_uint8_trunc(x: torch.Tensor) -> torch.Tensor:
     """clip to [0,255] then truncate toward zero (PIL blend C-cast semantics)."""
     return torch.clamp(torch.trunc(x), 0.0, 255.0).to(torch.uint8)

@@ -1,69 +1,79 @@
 // cv2 GaussianBlur on NHWC u8 batches: u8 in, u8 out, any h, w and channel
-// count, with one tap row for the batch or one an image.
+// count, with one tap row for the batch or one an image, in cv2's own 8U
+// integer arithmetic.
 //
 // Replaces: imagetransformations_tpu/ops/pallas/blur.py:36 `_blur_kernel`,
 // the body of blur_separable (launched at :126) and blur_to_sheared_rows
 // (:175). It also carries apply_all's per-image blur, which the JAX package
-// leaves to XLA (ops/stencil.py `_blur_batched`). What it computes (plain
-// versions: ops/stencil.gaussian_blur_plain and blur_batched_plain), per
-// channel, in f32 with every operation rounded on its own:
-//   vertical pass   v[y]  = sum_t in[reflect(y + t - p)] * taps[t]
-//   horizontal pass o[x]  = sum_t v[reflect(x + t - p)] * taps[t]
-//   out = clip(rint(o), 0, 255)                     (rint: half to even)
-// Each sum runs t = 0..K-1 left to right as acc + x*tap (K = 2p + 1); the
-// border is reflect-101 (numpy "reflect"), reflected again as often as p
-// needs, so images narrower than the window blur too.
+// leaves to XLA (ops/stencil.py `_blur_batched`). The JAX kernel computes
+// the blur in f32 and differs from cv2 by 1 LSB on a few percent of values;
+// this kernel computes cv2's fixed-point rule, which equals
+// cv2.GaussianBlur bit for bit (plain versions: ops/stencil.py
+// gaussian_blur_plain and blur_batched_plain), per channel:
+//   taps: int32 with 8 fraction bits summing to 256 (stencil.cv2_taps_q8:
+//         cv2's f64 Gaussian rounded by error diffusion)
+//   vertical pass   v[y] = sum_t in[reflect(y + t - p)] * taps[t]   (<= 65280)
+//   horizontal pass o[x] = sum_t v[reflect(x + t - p)] * taps[t]    (< 2^24)
+//   out = (o + 2^15) >> 16                                          (<= 255)
+// Integer sums are exact, so their order and the order of the passes do
+// not matter. The border is reflect-101 (numpy "reflect"), reflected again
+// as often as p needs, so images narrower than the window blur too.
 //
 // Tap rows. Image i reads the row at taps + i * tap_stride (stride 0: one
 // row for the batch) of tap_width values. A row may carry zeros at both
-// ends (the per-image rows are zero-padded to 31 around a centred window):
-// the kernel finds image i's first nonzero tap q and sums only the
-// K_i = tap_width - 2q taps between, which gives the same bytes as summing
-// all of them. Every summand is >= 0, so x * 0 = +0 and +0 + y = y; and the
-// window shifted by q leaves every reflect-101 index the same. Nothing is
-// read back to the host.
+// ends (the per-image rows are zero-padded to 31 around a centred window,
+// and cv2's outer taps may round to 0 at large radii): the kernel finds
+// image i's first nonzero tap q and sums only the K_i = tap_width - 2q taps
+// between, which gives the same sums (a zero tap adds 0), and the window
+// shifted by q leaves every reflect-101 index the same. Nothing is read
+// back to the host.
 //
 // Bound on the H100: the function reads n*h*w*c u8 and writes as many:
-// ~15 us at 32x512x512x3 over 3.35 TB/s. Its arithmetic, ~4K + 3
-// operations a value (K multiplies and K-1 adds a pass, conversions, rint,
-// clip, none fused) issues in ~29 us there at 33.5e12 a second with K = 9.
-// So operations bound it, and the design spends little beyond those 4K:
+// ~15 us at 32x512x512x3 over 3.35 TB/s. Its arithmetic, 2K multiply-adds
+// a value and the shift, is ~14 us at K = 9 at the f32 FMA rate (every
+// partial sum is an integer below 2^24, so an FMA could carry it); an
+// integer multiply-add (IMAD) issues at half that rate. The design spends
+// little beyond those 2K and halves the vertical pass's IMADs:
 // - Vertical pass: a register sliding window. A block owns a tile of tw
 //   output values (x * c + channel) and a strip of rows of one image; each
-//   thread owns one column of the tile plus its 2pc halo values and walks
-//   down the strip, keeping the last K converted values in registers. Each
-//   input byte is loaded and converted once per strip (the K-row body is
-//   unrolled so the window rotates by renaming, not by moves), with
-//   2^23 | b - 2^23 (a logic op and an add) instead of a convert. Row
-//   offsets, reflected, come from a table in shared memory made once a
-//   block, so the body has no branch and its loads run ahead of the sums.
-//   The block has one thread a staged column rounded up to a warp, so no
-//   warp runs a second pass while the others wait at the barrier.
+//   thread owns two adjacent staged columns of the tile and its 2pc halo
+//   values, packs their bytes of a row into the two 16-bit lanes of a word
+//   (a lane's sum is at most 255 * 256 < 2^16, so one IMAD a tap sums both
+//   columns), and walks down the strip, keeping the last K packed rows in
+//   registers. Each input byte is loaded once per strip (the K-row body is
+//   unrolled so the window rotates by renaming, not by moves). Row offsets,
+//   reflected, come from a table in shared memory made once a block, so
+//   the body has no branch and its loads run ahead of the sums. The block
+//   has one thread a staged pair rounded up to a warp, so no warp runs a
+//   second pass while the others wait at the barrier.
 // - The vertical sums of a chunk of R rows (R a multiple of K, at least 16)
-//   go to a shared f32 buffer; one barrier; the horizontal pass gives each
-//   thread M = 5 consecutive pixels of one channel, streaming the M + K - 1
-//   values they need once from shared memory (M is odd so the lanes'
-//   strides of 5c words fall in distinct banks for c = 1, 2, 4). Bytes are
-//   rounded as clip, then + 2^23 (half to even), and staged in shared
-//   memory.
+//   go to a shared u16 buffer, a word a pair; one barrier; the horizontal
+//   pass gives each thread M = 5 consecutive pixels of one channel, u32
+//   sums, streaming the M + K - 1 values they need once from shared memory
+//   (M is odd so the lanes' strides of 5c values spread over the banks).
+//   Bytes are rounded by an add and a shift, and staged in shared memory.
 // - One more barrier, and the chunk's rows leave as 16-byte words when the
 //   row, the tile and its start are multiples of 16 bytes (bytes otherwise).
 // - The body is a template on K (odd, 1..31). A call with one tap row
 //   launches the instance of its K alone (its registers are what that K
 //   needs); a call with per-image rows launches the kernel that switches,
 //   block-uniformly, over every K up to 31. K above 31 (radius > 5), or a
-//   halo too wide for one thread a column, takes a runtime-K body that reads
-//   the vertical taps from device memory (L1) column by column.
+//   halo too wide for one thread a pair, takes a runtime-K body that reads
+//   the vertical taps from device memory (L1) column by column, in u32.
 // - Small images: a tile spans min(w*c, ~512 - 2pc) values, so a 32x32x3
-//   image is one block of 128 threads (K = 9) that walks all its rows.
-// Shared memory: R * stride * 4 + R * tw bytes and the row table, <= 74 KB
+//   image is one block of 64 threads (K = 9) that walks all its rows.
+// Shared memory: R * stride * 2 + R * tw bytes and the row table, <= 45 KB
 // for 31 taps; grid z strides over the images beyond 65535.
 // Measured on an H100 80GB HBM3 at 700 W (PERF.md; tools/time_blur.py):
-// the earlier design (a u8 tile in shared memory, one conversion a tap, 128
-// threads over 128 + 2pc staged columns) took 0.337 / 0.933 ms at
-// 32x512x512x3, r 1.5 / 5, and 0.194 ms at 4096x32x32x3, r 1.5; this one
-// 0.128 / 0.240 and 0.051 ms, and 0.22 ms with the blur grid's radii one
-// an image.
+// the first design (a u8 tile in shared memory, one conversion a tap, 128
+// threads over 128 + 2pc staged columns, f32) took 0.337 / 0.933 ms at
+// 32x512x512x3, r 1.5 / 5, and 0.194 ms at 4096x32x32x3, r 1.5; this
+// design in f32 0.128 / 0.240 and 0.051 ms, and 0.22 ms with the blur
+// grid's radii one an image; in integers, one column a thread, 0.152 /
+// 0.187 and 0.045 ms, 0.174 with the grid's radii; with the 16-bit lanes
+// 0.090 / 0.140 and 0.035 ms, 0.121 with the grid's radii (0.206 at
+// 4096x32x32x3, against 0.193 one column a thread: half the threads a
+// block hide less latency on 32x32 images).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -74,12 +84,13 @@ constexpr int kMaxWindow = 31;   // largest K with a templated body
 constexpr int kGroup = 5;        // horizontal outputs a thread (M)
 constexpr int kAnyRows = 8;      // rows a chunk of the runtime-K body
 constexpr int kMaxGridZ = 65535; // grid.z cap: blocks stride over the images
-constexpr int kAnyThreads = 256; // runtime-K body's block when a column a thread does not fit
-// Launch shape: threads a block aims at (the tile width follows from it and
-// the halo) and output rows a block walks. 256 or 1024 threads, or 32 or 128
-// rows, moved the times of r 1.5 and 5 and of 4096x32x32 by -8% to +12%, with
-// no shape best for all (tools/time_blur.py on the H100).
-constexpr int kTargetThreads = 512;
+constexpr int kAnyThreads = 256; // runtime-K body's block when a pair a thread does not fit
+// Launch shape: staged columns a block aims at (the tile width follows from
+// it and the halo; a thread stages two) and output rows a block walks. 256
+// or 1024 columns, or 32 or 128 rows, moved the times of r 1.5 and 5 and of
+// 4096x32x32 by -8% to +12%, with no shape best for all (tools/time_blur.py
+// on the H100, one column a thread).
+constexpr int kTargetSpan = 512;
 constexpr int kStripRows = 64;
 constexpr size_t kSmemMax = 227 * 1024;  // the H100's per-block maximum
 
@@ -104,16 +115,8 @@ __device__ __forceinline__ int row_of(int y, int h) {
   return r;
 }
 
-// exact u8 -> f32: the float 2^23 + b, less 2^23
-__device__ __forceinline__ float u8_to_f32(uint32_t b) {
-  return __fsub_rn(__int_as_float(0x4B000000 | b), 8388608.0f);
-}
-
-// clip(rint(v), 0, 255) as a byte: clip, then 2^23 + v rounds v to an
-// integer half to even (the float's unit in the last place is 1 there)
-__device__ __forceinline__ uint8_t to_u8(float v) {
-  return (uint8_t)(__float_as_int(__fadd_rn(fminf(fmaxf(v, 0.0f), 255.0f), 8388608.0f)) & 0xFF);
-}
+// the byte of a 16-fraction-bit sum (< 2^24): cv2's (v + 2^15) >> 16
+__device__ __forceinline__ uint8_t to_u8(uint32_t v) { return (uint8_t)((v + 0x8000u) >> 16); }
 
 // u / d by a multiply, exact for u * d < 2^32: m = ceil(2^32 / d) (m = 0
 // stands for d = 1)
@@ -127,26 +130,31 @@ __host__ __device__ __forceinline__ FastDiv make_div(uint32_t d) {
 }
 
 // Shared memory, in 16-byte-aligned parts: the vertical sums [rmax][stride]
-// f32 (and the horizontal pass's over-read of a group past the last row),
-// the output bytes [rmax][tw], and the row table [tsize] int.
-__host__ __device__ __forceinline__ size_t out_offset(int rmax, int stride, int c) {
-  return ((size_t)rmax * stride + (kGroup - 1) * c + 3) / 4 * 4;  // floats
+// (u16 for the K bodies, with the horizontal pass's over-read of a group
+// past the last row; u32 for a launch of the runtime-K body alone, whose
+// kAnyRows rows of u32 also fit the K bodies' >= 16 rows of u16), the
+// output bytes [rmax][tw], and the row table [tsize] int.
+__host__ __device__ __forceinline__ size_t out_offset(int rmax, int stride, int c, bool wide) {
+  const size_t bytes = ((size_t)rmax * stride + (kGroup - 1) * c) * (wide ? 4 : 2);
+  return (bytes + 15) / 16 * 4;  // words
 }
 
-__host__ __device__ __forceinline__ size_t table_offset(int rmax, int stride, int c, int tw) {
-  return out_offset(rmax, stride, c) + ((size_t)rmax * tw + 15) / 16 * 4;  // floats
+__host__ __device__ __forceinline__ size_t table_offset(int rmax, int stride, int c, int tw,
+                                                        bool wide) {
+  return out_offset(rmax, stride, c, wide) + ((size_t)rmax * tw + 15) / 16 * 4;  // words
 }
 
 struct Args {
   const uint8_t* x;
   uint8_t* out;
-  const float* taps;
+  const int32_t* taps;
   int tap_stride, tap_width;  // image i's taps: taps[i * tap_stride + 0..tap_width)
   int n, h, w, c;
   int tw;          // values a tile spans (a multiple of c; the last tile may be ragged)
   int strip;       // output rows a block walks
-  int stride;      // floats a row of the vertical-sum buffer holds (>= every span)
+  int stride;      // words a row of the vertical-sum buffer holds (>= every span)
   int rmax;        // rows of the vertical-sum and output buffers
+  bool wide;       // u32 vertical sums: a launch of the runtime-K body alone
   int tsize;       // entries of the row table: input rows y0 - pmax .. of a strip
   FastDiv div_c;
 };
@@ -155,17 +163,17 @@ struct Args {
 struct Tile {
   const uint8_t* src;  // image
   uint8_t* dst;
-  const float* taps;   // K nonzero taps
+  const int32_t* taps;  // K taps, the outer two nonzero
   int v0, tw, y0, rows;
 };
 
-__device__ __forceinline__ uint8_t* out_buf(const Args& a, float* smem) {
-  return reinterpret_cast<uint8_t*>(smem + out_offset(a.rmax, a.stride, a.c));
+__device__ __forceinline__ uint8_t* out_buf(const Args& a, uint32_t* smem) {
+  return reinterpret_cast<uint8_t*>(smem + out_offset(a.rmax, a.stride, a.c, a.wide));
 }
 
 // rowoff[i]: offset in the image of input row y0 - pmax + i, reflected
-__device__ __forceinline__ int* row_table(const Args& a, float* smem) {
-  return reinterpret_cast<int*>(smem + table_offset(a.rmax, a.stride, a.c, a.tw));
+__device__ __forceinline__ int* row_table(const Args& a, uint32_t* smem) {
+  return reinterpret_cast<int*>(smem + table_offset(a.rmax, a.stride, a.c, a.tw, a.wide));
 }
 
 // Source offset within a row of staged column j (value v0 + j - halo).
@@ -195,31 +203,41 @@ __device__ __forceinline__ void store_rows(const Args& a, const Tile& t, const u
   }
 }
 
+// two bytes as the 16-bit lanes of a word: b0 in bits 0..7, b1 in 16..23
+__device__ __forceinline__ uint32_t pack2(uint32_t b0, uint32_t b1) {
+  return __byte_perm(b0, b1, 0x5410);
+}
+
 template <int K>
-__device__ __forceinline__ void blur_tile(const Args& a, const Tile& t, float* smem) {
+__device__ __forceinline__ void blur_tile(const Args& a, const Tile& t, uint32_t* smem) {
   constexpr int P = K / 2;
   constexpr int R = chunk_rows(K);
   const int c = a.c;
   const int halo = P * c;
   const int span = t.tw + 2 * halo;
-  const int j = threadIdx.x;
-  float* mid = smem;
+  const int j = threadIdx.x;  // staged columns 2j and 2j + 1
   uint8_t* obuf = out_buf(a, smem);
   // input row y0 - P + i of the strip at rows[i]
   const int* rows = row_table(a, smem) + (a.tap_width - 1) / 2 - P;
-  float tp[K];
+  uint32_t tp[K];
 #pragma unroll
-  for (int i = 0; i < K; ++i) tp[i] = __ldg(t.taps + i);
+  for (int i = 0; i < K; ++i) tp[i] = (uint32_t)__ldg(t.taps + i);
 
-  // Threads past the span (in the last warp) load column 0 and store
-  // nothing, so the vertical body has no branch and its loads run ahead.
-  const bool active = j < span;
-  const uint8_t* s = t.src + (active ? column_source(a, t.v0, j, halo) : 0);
-  // the window: slot i % K holds input row y0 - P + i of this column
-  float win[K];
+  // Threads whose pair starts past the span (in the last warp) load column
+  // 0 and store nothing, so the vertical body has no branch and its loads
+  // run ahead; a pair's second column past the span loads its first.
+  const bool active = 2 * j < span;
+  const uint8_t* s0 = t.src + (active ? column_source(a, t.v0, 2 * j, halo) : 0);
+  const uint8_t* s1 = t.src + (2 * j + 1 < span ? column_source(a, t.v0, 2 * j + 1, halo)
+                                                : s0 - t.src);
+  // the window: slot i % K holds input row y0 - P + i of the pair, a byte
+  // in each 16-bit lane; a lane's sum is at most 255 * 256, so the two
+  // columns' vertical sums share one multiply-add a tap
+  uint32_t win[K];
 #pragma unroll
-  for (int i = 0; i < K - 1; ++i) win[i] = u8_to_f32(__ldg(s + rows[i]));
+  for (int i = 0; i < K - 1; ++i) win[i] = pack2(__ldg(s0 + rows[i]), __ldg(s1 + rows[i]));
 
+  uint16_t* mid = reinterpret_cast<uint16_t*>(smem);  // the vertical sums
   const int npx = t.tw / c;
   const uint32_t gc = (npx + kGroup - 1) / kGroup * c;  // units a row: pixel groups x channels
   const FastDiv div_gc = make_div(gc);
@@ -235,11 +253,13 @@ __device__ __forceinline__ void blur_tile(const Args& a, const Tile& t, float* s
 #pragma unroll
       for (int u = 0; u < K; ++u) {
         const int r = kb + u;
-        win[(u + K - 1) % K] = u8_to_f32(__ldg(s + rows[r0 + r + 2 * P]));
-        float acc = __fmul_rn(win[u % K], tp[0]);
+        const int off = rows[r0 + r + 2 * P];
+        win[(u + K - 1) % K] = pack2(__ldg(s0 + off), __ldg(s1 + off));
+        uint32_t acc = win[u % K] * tp[0];
 #pragma unroll
-        for (int i = 1; i < K; ++i) acc = __fadd_rn(acc, __fmul_rn(win[(u + i) % K], tp[i]));
-        if (active && r < nr) mid[r * a.stride + j] = acc;
+        for (int i = 1; i < K; ++i) acc += win[(u + i) % K] * tp[i];
+        // the low lane is column 2j, the high one 2j + 1
+        if (active && r < nr) reinterpret_cast<uint32_t*>(mid + r * a.stride)[j] = acc;
       }
     }
     __syncthreads();
@@ -250,21 +270,18 @@ __device__ __forceinline__ void blur_tile(const Args& a, const Tile& t, float* s
       const uint32_t g = a.div_c.div(rem);
       const int ch = rem - g * c;
       const int px0 = g * kGroup;
-      const float* m = mid + r * a.stride + px0 * c + ch;
-      float acc[kGroup];
+      const auto* m = mid + r * a.stride + px0 * c + ch;
+      uint8_t* ob = obuf + r * a.tw + px0 * c + ch;
+      uint32_t acc[kGroup];
 #pragma unroll
       for (int q = 0; q < kGroup + K - 1; ++q) {
-        const float val = m[q * c];
+        const uint32_t val = m[q * c];
 #pragma unroll
         for (int o = 0; o < kGroup; ++o) {
           const int i = q - o;
-          if (i >= 0 && i < K) {
-            const float prod = __fmul_rn(val, tp[i]);
-            acc[o] = i == 0 ? prod : __fadd_rn(acc[o], prod);
-          }
+          if (i >= 0 && i < K) acc[o] = i == 0 ? val * tp[i] : acc[o] + val * tp[i];
         }
       }
-      uint8_t* ob = obuf + r * a.tw + px0 * c + ch;
 #pragma unroll
       for (int o = 0; o < kGroup; ++o)
         if (px0 + o < npx) ob[o * c] = to_u8(acc[o]);
@@ -275,12 +292,12 @@ __device__ __forceinline__ void blur_tile(const Args& a, const Tile& t, float* s
 }
 
 // Any K: each vertical sum reads its K bytes from device memory (L1).
-__device__ void blur_tile_any(const Args& a, const Tile& t, int k, float* smem) {
+__device__ void blur_tile_any(const Args& a, const Tile& t, int k, uint32_t* smem) {
   const int p = k / 2;
   const int c = a.c, h = a.h, wc = a.w * a.c;
   const int halo = p * c;
   const int span = t.tw + 2 * halo;
-  float* mid = smem;
+  uint32_t* mid = smem;
   uint8_t* obuf = out_buf(a, smem);
   for (int r0 = 0; r0 < t.rows; r0 += kAnyRows) {
     const int nr = min(kAnyRows, t.rows - r0);
@@ -288,19 +305,18 @@ __device__ void blur_tile_any(const Args& a, const Tile& t, int k, float* smem) 
       const uint8_t* s = t.src + column_source(a, t.v0, j, halo);
       for (int r = 0; r < nr; ++r) {
         const int y = t.y0 + r0 + r - p;
-        float acc = __fmul_rn(u8_to_f32(__ldg(s + (size_t)row_of(y, h) * wc)), t.taps[0]);
-        for (int i = 1; i < k; ++i)
-          acc = __fadd_rn(acc, __fmul_rn(u8_to_f32(__ldg(s + (size_t)row_of(y + i, h) * wc)),
-                                         t.taps[i]));
+        uint32_t acc = 0;
+        for (int i = 0; i < k; ++i)
+          acc += (uint32_t)__ldg(s + (size_t)row_of(y + i, h) * wc) * (uint32_t)t.taps[i];
         mid[r * a.stride + j] = acc;
       }
     }
     __syncthreads();
     for (int i = threadIdx.x; i < nr * t.tw; i += blockDim.x) {
       const int r = i / t.tw, v = i - r * t.tw;
-      const float* m = mid + r * a.stride + v;
-      float acc = __fmul_rn(m[0], t.taps[0]);
-      for (int q = 1; q < k; ++q) acc = __fadd_rn(acc, __fmul_rn(m[q * c], t.taps[q]));
+      const uint32_t* m = mid + r * a.stride + v;
+      uint32_t acc = 0;
+      for (int q = 0; q < k; ++q) acc += m[q * c] * (uint32_t)t.taps[q];
       obuf[r * a.tw + v] = to_u8(acc);
     }
     __syncthreads();
@@ -314,7 +330,7 @@ __device__ void blur_tile_any(const Args& a, const Tile& t, int k, float* smem) 
 // above).
 template <int KSET>
 __device__ __forceinline__ void blur_blocks(const Args& a) {
-  extern __shared__ float smem[];
+  extern __shared__ uint32_t smem[];
   const int wc = a.w * a.c;
   const int v0 = blockIdx.x * a.tw;
   const int y0 = blockIdx.y * a.strip;
@@ -323,12 +339,12 @@ __device__ __forceinline__ void blur_blocks(const Args& a) {
   for (int i = threadIdx.x; i < a.tsize; i += blockDim.x) rows[i] = row_of(y0 - half + i, a.h) * wc;
   __syncthreads();
   for (int img = blockIdx.z; img < a.n; img += gridDim.z) {
-    const float* row = a.taps + (size_t)img * a.tap_stride;
+    const int32_t* row = a.taps + (size_t)img * a.tap_stride;
     // K: the row's centred window of nonzero taps, from its first nonzero
     // q. (A loop of loads: a block vote over the row took 0.164 ms against
     // 0.129 at r 1.5, 32x512x512x3, with the same body.)
     int q = 0;
-    while (q < half && row[q] == 0.0f) ++q;
+    while (q < half && row[q] == 0) ++q;
     const int k = a.tap_width - 2 * q;
     const Tile t = {a.x + (size_t)img * a.h * wc, a.out + (size_t)img * a.h * wc, row + q,
                     v0, min(a.tw, wc - v0), y0, min(a.strip, a.h - y0)};
@@ -405,10 +421,10 @@ int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
 }  // namespace
 
-// x: u8 [n, h, w, c]; out: u8 [n, h, w, c]; taps: f32 rows of tap_width
+// x: u8 [n, h, w, c]; out: u8 [n, h, w, c]; taps: int32 rows of tap_width
 // (odd) values, image i's at taps + i * tap_stride (0: one row for the
-// batch), each a centred window of nonzero taps summing to 1, zero-padded
-// alike at both ends. Launches on `stream`;
+// batch), each a centred window of taps in [0, 256] with 8 fraction bits
+// summing to 256, zero-padded alike at both ends. Launches on `stream`;
 // returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue when
 // the shape does not fit a launch (shared memory, grid).
 extern "C" int blur_separable(const void* x, void* out, const void* taps, int tap_stride,
@@ -420,18 +436,18 @@ extern "C" int blur_separable(const void* x, void* out, const void* taps, int ta
   const int align = 16 / gcd(16, c) * c;  // lcm(16, c): tiles start on pixels and 16 bytes
   // one tap row with K <= 31: that K's instance; per-image rows: the switch;
   // the runtime-K body for wider windows, or when one thread a staged
-  // column does not fit the kernel's registers
+  // pair does not fit the kernel's registers
   int kset = tap_width > kMaxWindow ? 0 : tap_stride == 0 ? tap_width : -1;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel_for(kset));
   if (err != cudaSuccess) return err;
   const int max_threads = attr.maxThreadsPerBlock / 32 * 32;
-  const int target_threads = kTargetThreads < max_threads ? kTargetThreads : max_threads;
-  int tw = (target_threads - halo2) / align * align;
+  const int target_span = kTargetSpan < 2 * max_threads ? kTargetSpan : 2 * max_threads;
+  int tw = (target_span - halo2) / align * align;
   if (tw < align) tw = align;
   const int tiles = (wc + tw - 1) / tw;
   tw = ((wc + tiles - 1) / tiles + align - 1) / align * align;
-  int threads = (tw + halo2 + 31) / 32 * 32;
+  int threads = ((tw + halo2 + 1) / 2 + 31) / 32 * 32;  // two staged columns a thread
   if (threads > max_threads) {
     kset = 0;
     threads = kAnyThreads;
@@ -443,10 +459,10 @@ extern "C" int blur_separable(const void* x, void* out, const void* taps, int ta
   const int strip = kset > 0 ? (kStripRows + rmax - 1) / rmax * rmax  // whole chunks
                              : kStripRows;
   Args a = {static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
-            static_cast<const float*>(taps), tap_stride, tap_width, n, h, w, c, tw, strip,
-            threads > tw + halo2 ? threads : tw + halo2, rmax, strip + rmax + 2 * pmax,
-            make_div(c)};
-  const size_t smem = sizeof(float) * table_offset(rmax, a.stride, c, tw)
+            static_cast<const int32_t*>(taps), tap_stride, tap_width, n, h, w, c, tw, strip,
+            2 * threads > tw + halo2 ? 2 * threads : tw + halo2, rmax, kset == 0,
+            strip + rmax + 2 * pmax, make_div(c)};
+  const size_t smem = sizeof(uint32_t) * table_offset(rmax, a.stride, c, tw, a.wide)
                       + sizeof(int) * (size_t)a.tsize;
   // FastDiv's domain: every value index (with its halo) times c below 2^32;
   // row offsets in int

@@ -5,11 +5,14 @@
 // _shear_bicubic_kernel (reached through shear_bicubic_batched), the
 // reference's apply_shear (transformation.py:212-226) on its widened canvas,
 // cropped to [:, :, :w]. The inverse map is (1, s, m2; 0, 1, 0) with
-// m2 = -ceil(s*h) for s > 0, else 0, so the source row is the output row
+// m2 = -shift, shift = ceil(s*h) for s > 0, else 0: an int32 an image that
+// the host takes in f64, as PIL's Python caller does (ops/hopper/
+// resample.canvas_shifts; the JAX kernel's f32 ceilf(s*h) moves whole rows
+// by a pixel at some (s, h)). So the source row is the output row
 // and the vertical cubic collapses (fy == 0): each output value is a
 // 4-tap horizontal cubic of its own row. In f32, every op rounded on its
 // own, in the op order of the JAX kernel and of affine_warp:
-//   per row: m2 = -ceil(s*h) (f32), t = s*(y + 0.5)
+//   per row: m2 = -(float)shift, t = s*(y + 0.5)
 //   per pixel: xx = ((x + 0.5) + t) + m2, xin = xx - 0.5, x0 = floor(xin),
 //   fx = xin - x0
 //   taps c_j = v[clamp(x0 + j, 0, w-1)], j = -1..2 (affine_warp._gather)
@@ -107,7 +110,8 @@ __device__ __forceinline__ uint32_t cubic_word(float a, float b, float cc, float
 template <int C>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 shear_bicubic_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
-                     const float* __restrict__ factors, long long units, int h, int w, int cc,
+                     const float* __restrict__ factors, const int* __restrict__ shifts,
+                     long long units, int h, int w, int cc,
                      int seg, int nseg, int gp, int capq, int tstride) {
   extern __shared__ float smem_f32[];
   const int c = C > 0 ? C : cc;
@@ -143,7 +147,7 @@ shear_bicubic_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
       px0 = sg * seg;
       px1 = px0 + seg < w ? px0 + seg : w;
       const float s = factors[img];
-      m2 = -(s > 0.0f ? ceilf(__fmul_rn(s, (float)h)) : 0.0f);
+      m2 = -(float)shifts[img];
       t = __fmul_rn(s, __fadd_rn((float)y, 0.5f));
       auto xx_of = [&](int xi) {
         return __fadd_rn(__fadd_rn(__fadd_rn((float)xi, 0.5f), t), m2);
@@ -280,8 +284,8 @@ shear_bicubic_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
 }
 
 template <int C>
-cudaError_t launch(const uint8_t* x, uint8_t* out, const float* f, int n, int h, int w, int c,
-                   cudaStream_t st) {
+cudaError_t launch(const uint8_t* x, uint8_t* out, const float* f, const int* m, int n, int h,
+                   int w, int c, cudaStream_t st) {
   const auto kernel = shear_bicubic_kernel<C>;
   int max_threads = 0;
   long long max_smem = 0;
@@ -307,25 +311,27 @@ cudaError_t launch(const uint8_t* x, uint8_t* out, const float* f, int n, int h,
   if (err != cudaSuccess) return err;
   long long blocks = (units + teams - 1) / teams;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  kernel<<<(unsigned)blocks, teams * gp, (size_t)smem, st>>>(x, out, f, units, h, w, c, seg,
+  kernel<<<(unsigned)blocks, teams * gp, (size_t)smem, st>>>(x, out, f, m, units, h, w, c, seg,
                                                              (int)nseg, gp, capq, (int)tstride);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: u8 [n, h, w, c]; out: u8 [n, h, w, c]; factors: f32 [n]. Launches on
-// `stream`; returns a CUDA error code (0 on success).
-extern "C" int shear_bicubic(const void* x, void* out, const void* factors, int n, int h, int w,
-                             int c, void* stream) {
+// x: u8 [n, h, w, c]; out: u8 [n, h, w, c]; factors: f32 [n]; shifts: int32
+// [n], each image's canvas shift (|shift| < 2^24, exact as a float).
+// Launches on `stream`; returns a CUDA error code (0 on success).
+extern "C" int shear_bicubic(const void* x, void* out, const void* factors, const void* shifts,
+                             int n, int h, int w, int c, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* xi = static_cast<const uint8_t*>(x);
   uint8_t* o = static_cast<uint8_t*>(out);
   const float* f = static_cast<const float*>(factors);
+  const int* m = static_cast<const int*>(shifts);
   switch (c) {
-    case 1: return launch<1>(xi, o, f, n, h, w, c, st);
-    case 3: return launch<3>(xi, o, f, n, h, w, c, st);
-    case 4: return launch<4>(xi, o, f, n, h, w, c, st);
-    default: return launch<0>(xi, o, f, n, h, w, c, st);
+    case 1: return launch<1>(xi, o, f, m, n, h, w, c, st);
+    case 3: return launch<3>(xi, o, f, m, n, h, w, c, st);
+    case 4: return launch<4>(xi, o, f, m, n, h, w, c, st);
+    default: return launch<0>(xi, o, f, m, n, h, w, c, st);
   }
 }

@@ -4,13 +4,19 @@ equalization and the reference's YUV-space equalization (PyTorch).
 Counterpart of ``imagetransformations_tpu/ops/histogram.py`` (XLA in the
 JAX package, no Pallas kernel):
 
-- ``equalize_channel``: cv2.equalizeHist's LUT, the cdf minus its first
-  nonzero value, ``rint((cdf - cdf_min) * 255 / (N - cdf_min))``.
+- ``equalize_channel``: the JAX package's equalizeHist LUT, the cdf minus
+  its first nonzero value, ``rint((cdf - cdf_min) * 255 / (N - cdf_min))``;
+  ``equalize_channel_cv2``: cv2.equalizeHist's own rounding.
 - ``histogram_equalization``: the reference's YUV-space luma equalization
-  (pipenline/cifar_image_transformations.py:122-129), cv2's YUV conversion
-  in f32. The colour products are written out as f32 multiplies and adds in
-  the channel order of the JAX einsum, each rounded on its own (no matrix
-  product: on the card that could run in TF32).
+  (pipenline/cifar_image_transformations.py:122-129): cv2's RGB2YUV,
+  equalizeHist on Y, YUV2RGB. On uint8 input the conversions are cv2's own
+  14-bit fixed point in integers and the LUT is cv2's, so the op equals cv2
+  bit for bit (the JAX
+  package converts in f32 and differs from cv2 by up to tens of LSB, as a
+  flipped Y level moves the CDF). Float input keeps the f32 conversion:
+  f32 multiplies and adds in the channel order of the JAX einsum, each
+  rounded on its own (no matrix product: on the card that could run in
+  TF32).
 """
 
 from __future__ import annotations
@@ -51,26 +57,64 @@ def equalize_channel(chan: torch.Tensor) -> torch.Tensor:
     return out[0] if chan.ndim == 2 else out
 
 
+def equalize_channel_cv2(chan: torch.Tensor) -> torch.Tensor:
+    """cv2.equalizeHist itself on u8 [N, H, W]: from the first nonzero bin
+    i, ``lut = rint(f32(cdf - cdf[i]) * f32(255 / (total - hist[i])))``, and
+    an image of one level keeps it. ``equalize_channel`` (the JAX package's
+    rule) divides after the product, which moves a level by 1 at some pixel
+    counts (23x37), and maps one level to 0."""
+    n = chan.shape[0]
+    hist = pixel_histogram(chan[..., None])
+    cdf = torch.cumsum(hist, dim=1)
+    first = torch.argmax((hist > 0).to(torch.int32), dim=1, keepdim=True)
+    cdf_min = torch.gather(cdf, 1, first)
+    total = chan.shape[1] * chan.shape[2]
+    # a tensor numerator: PyTorch takes ``255.0 / t`` as 255 * (1 / t)
+    scale = torch.full_like(cdf_min, 255, dtype=torch.float32) / torch.clamp(
+        total - cdf_min, min=1).to(torch.float32)
+    lut = torch.clamp(torch.round((cdf - cdf_min).to(torch.float32) * scale), 0, 255)
+    lut = torch.where(cdf_min == total, first.to(torch.float32), lut).to(torch.uint8)
+    idx = chan.to(torch.int64).reshape(n, -1)
+    return torch.gather(lut, 1, idx).reshape(chan.shape)
+
+
 def _mix(planes, coeffs) -> list[torch.Tensor]:
     """out[k] = (p[0]*m[k][0] + p[1]*m[k][1]) + p[2]*m[k][2] in f32."""
     m = torch.tensor(coeffs, dtype=torch.float32)
     return [(planes[0] * m[k, 0] + planes[1] * m[k, 1]) + planes[2] * m[k, 2] for k in range(3)]
 
 
+def _equalize_yuv_int(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cv2's u8 RGB2YUV, equalizeHist on Y and YUV2RGB, in its 14-bit fixed
+    point (int32 planes [N, H, W] in 0..255) -> u8 [N, H, W, 3]. Shifts of
+    negative sums floor, as cv2's CV_DESCALE does."""
+    half = 1 << 13
+    y = (r * 4899 + g * 9617 + b * 1868 + half) >> 14
+    u = torch.clamp(((b - y) * 8061 + (128 << 14) + half) >> 14, 0, 255) - 128
+    v = torch.clamp(((r - y) * 14369 + (128 << 14) + half) >> 14, 0, 255) - 128
+    y = equalize_channel_cv2(y.to(torch.uint8)).to(torch.int32)
+    rgb = (y + ((v * 18678 + half) >> 14), y + ((u * -6472 + v * -9519 + half) >> 14),
+           y + ((u * 33292 + half) >> 14))
+    return torch.stack([torch.clamp(p, 0, 255) for p in rgb], dim=-1).to(torch.uint8)
+
+
 def histogram_equalization(img: torch.Tensor) -> torch.Tensor:
-    """YUV-space luma equalization: RGB -> YUV in f32, the Y plane rounded,
-    clipped and equalized, back to RGB, rint and clip. Three channels out.
-    One channel reads as (L, L, L), as the JAX einsum broadcasts it; 2 or
-    more than 3 channels raise ValueError, as the JAX einsum does."""
+    """YUV-space luma equalization, three channels out. u8: cv2's integer
+    conversions (``_equalize_yuv_int``); float: RGB -> YUV in f32, the Y
+    plane rounded, clipped and equalized, back to RGB, rint and clip. One
+    channel reads as (L, L, L), as the JAX einsum broadcasts it (so Y = L
+    and U = V = 128 in integers); 2 or more than 3 channels raise
+    ValueError, as the JAX einsum does."""
     x, single = as_batch(img)
     c = x.shape[-1]
     if c not in (1, 3):
         raise ValueError(f"histogram_equalization takes 1 or 3 channels, got {c}")
+    if x.dtype == torch.uint8:
+        xi = x.to(torch.int32)
+        out = _equalize_yuv_int(*(xi[..., min(i, c - 1)] for i in range(3)))
+        return restore_layout(out, single)
     xf = x.to(torch.float32)
     y, u, v = _mix([xf[..., min(i, c - 1)] for i in range(3)], _RGB2YUV)
     y_eq = equalize_channel(torch.clamp(torch.round(y), 0, 255)).to(torch.float32)
     rgb = torch.stack(_mix([y_eq, u, v], _YUV2RGB), dim=-1)
-    out = torch.clamp(torch.round(rgb), 0, 255)
-    if img.dtype == torch.uint8:
-        out = out.to(torch.uint8)
-    return restore_layout(out, single)
+    return restore_layout(torch.clamp(torch.round(rgb), 0, 255), single)

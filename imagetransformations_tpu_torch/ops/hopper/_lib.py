@@ -52,8 +52,8 @@ SIGNATURES = {
     "rgb_blur_rotate": {"rgb_blur_rotate": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                                             _I, _I, _I, _I, _I, _I, _I, _P, _I,
                                             _I, _I, _I, _I, _I, _I, _I, _I, _P)},
-    # x, out, factors, n, h, w, c, stream
-    "shear_bicubic": {"shear_bicubic": (_P, _P, _P, _I, _I, _I, _I, _P)},
+    # x, out, factors, shifts (int32 canvas shifts), n, h, w, c, stream
+    "shear_bicubic": {"shear_bicubic": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
     # shear_rows: x, out, shifts, shift_stride, n, h, w, c, fill, b_px,
     # grayscale, stream; shear_cols: x, out, shifts, n, h, w, c, fill, b_px,
     # stream
@@ -66,7 +66,7 @@ SIGNATURES = {
     # stream
     "rotate_nearest": {"rotate_nearest": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
                        "rotate_nearest_float": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)},
-    # x, out, taps, tap_stride, tap_width, n, h, w, c, stream
+    # x, out, taps (int32, 8 fraction bits), tap_stride, tap_width, n, h, w, c, stream
     "blur_separable": {"blur_separable": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
 }
 

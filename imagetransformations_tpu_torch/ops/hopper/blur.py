@@ -1,5 +1,5 @@
 """cv2 GaussianBlur on NHWC uint8 batches, one radius for the batch or one
-an image.
+an image, in cv2's own 8U integer arithmetic.
 
 Counterpart of ``imagetransformations_tpu/ops/pallas/blur.py``:
 ``blur_separable`` and ``blur_to_sheared_rows``, both of which launch the
@@ -8,12 +8,13 @@ per-image blur (XLA in the JAX package, ``ops/stencil.apply_blur`` with an
 array). On the card the hand-written kernel ``csrc/blur_separable.cu``
 carries all three; its plain PyTorch versions are
 ``ops.stencil.gaussian_blur_plain`` and ``ops.stencil.blur_batched_plain``,
-which compute the same function in the same order (vertical taps, then
-horizontal, t = 0..K-1 left to right, f32, reflect-101, rint). A CPU tensor
-runs the plain version, a CUDA tensor the kernel (or the call raises);
-nothing falls back. The kernel runs at every shape, so the Pallas entry's
-XLA fallback for unaligned layouts and its 128-lane alignment assert have
-no counterpart.
+which compute the same function: cv2's taps with 8 fraction bits
+(``stencil.cv2_taps_q8``), integer sums along H and W with reflect-101
+borders, ``(sum + 2^15) >> 16``; this equals ``cv2.GaussianBlur`` bit for
+bit, where the JAX kernel's f32 blur does not. A CPU tensor runs the plain
+version, a CUDA tensor the kernel (or the call raises); nothing falls back.
+The kernel runs at every shape, so the Pallas entry's XLA fallback for
+unaligned layouts and its 128-lane alignment assert have no counterpart.
 """
 
 from __future__ import annotations
@@ -26,19 +27,19 @@ import torch
 from imagetransformations_tpu_torch.ops.hopper import _lib
 from imagetransformations_tpu_torch.ops.stencil import (
     blur_batched_plain,
-    blur_taps_batched,
-    cv2_gaussian_ksize,
+    blur_tap_rows,
+    cv2_taps_q8,
     gaussian_blur_plain,
-    gaussian_taps,
 )
 
 
 @functools.lru_cache(maxsize=64)
 def blur_taps(radius: float, device: torch.device) -> torch.Tensor:
-    """The f32 cv2 taps [K] of ``radius`` on ``device`` (host f64, cast).
-    Cached, so a repeated call copies nothing to the card."""
-    k = cv2_gaussian_ksize(float(radius))
-    return torch.from_numpy(gaussian_taps(k, float(radius)).astype(np.float32)).to(device)
+    """cv2's int32 taps of ``radius`` (``stencil.cv2_taps_q8``) between its
+    outer nonzero ones (a zero tap adds nothing: r 5's 31 taps are 29 here,
+    so the kernel runs the body of that K), on ``device``, made on the
+    host. Cached, so a repeated call copies nothing to the card."""
+    return torch.from_numpy(np.trim_zeros(cv2_taps_q8(float(radius)))).to(device)
 
 
 def _check_batch(img) -> None:
@@ -50,9 +51,11 @@ def _check_batch(img) -> None:
 
 def _launch(x: torch.Tensor, taps: torch.Tensor, tap_stride: int, name: str) -> torch.Tensor:
     """``csrc/blur_separable.cu`` on the contiguous CUDA batch ``x`` with
-    tap rows of ``taps.shape[-1]`` values, ``tap_stride`` apart; counts one
-    launch under ``name``."""
+    int32 tap rows of ``taps.shape[-1]`` values, ``tap_stride`` apart;
+    counts one launch under ``name``."""
     n, h, w, c = x.shape
+    if taps.dtype != torch.int32 or taps.device != x.device or not taps.is_contiguous():
+        raise ValueError("taps must be a contiguous int32 tensor on the image's device")
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
@@ -68,8 +71,9 @@ def _launch(x: torch.Tensor, taps: torch.Tensor, tap_stride: int, name: str) -> 
 
 def blur_separable(img: torch.Tensor, radius: float) -> torch.Tensor:
     """cv2.GaussianBlur semantics (ksize = int(6r) forced odd, min 3,
-    sigma = r, reflect-101 border). NHWC uint8 -> uint8, on the tensor's
-    device. Radius 0 returns the input, as the JAX function does.
+    sigma = r, reflect-101 border, cv2's 8U integer arithmetic). NHWC
+    uint8 -> uint8, on the tensor's device. Radius 0 returns the input, as
+    the JAX function does.
 
     On CUDA: ``csrc/blur_separable.cu`` with one tap row; on the CPU: the
     plain version."""
@@ -82,22 +86,31 @@ def blur_separable(img: torch.Tensor, radius: float) -> torch.Tensor:
     return _launch(img.contiguous(), blur_taps(radius, img.device), 0, "blur_separable")
 
 
-def blur_separable_batched(img: torch.Tensor, radii) -> torch.Tensor:
+def blur_separable_batched(img: torch.Tensor, radii, taps: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """cv2.GaussianBlur with one radius an image (apply_all's blur): NHWC
     uint8 [N, H, W, C] -> uint8, ``radii`` [N] (radius 0: the image as it
     is), on the images' device.
 
-    On CUDA: ``csrc/blur_separable.cu`` with each image's f32 tap row from
-    ``stencil.blur_taps_batched`` (31 wide, zero-padded); the kernel finds
-    each image's window from its nonzero taps, so nothing is read back to
-    the host. On the CPU: the plain version ``stencil.blur_batched_plain``."""
+    ``taps``: each image's int32 tap row [N, W] (``stencil.blur_tap_rows``)
+    where the caller has them on the images' device (the sweep gathers
+    them from a table of the grid's rows by drawn index); by default they
+    are made on the host from ``radii`` (``stencil.blur_tap_rows``: radii
+    on the card are read back first). On CUDA: ``csrc/blur_separable.cu``
+    with those rows (the kernel finds each image's window from its nonzero
+    taps); on the CPU: the plain version ``stencil.blur_batched_plain``."""
     _check_batch(img)
-    r = torch.as_tensor(radii, dtype=torch.float32, device=img.device)
-    if r.shape != (img.shape[0],):
-        raise ValueError(f"expected {img.shape[0]} radii, got shape {tuple(r.shape)}")
+    n = img.shape[0]
+    r = torch.as_tensor(radii, dtype=torch.float32)
+    if r.shape != (n,):
+        raise ValueError(f"expected {n} radii, got shape {tuple(r.shape)}")
+    if taps is None:
+        taps = blur_tap_rows(r, img.device)
+    if taps.shape != (n, taps.shape[-1]):
+        raise ValueError(f"expected {n} tap rows, got shape {tuple(taps.shape)}")
     if img.device.type == "cpu":
-        return blur_batched_plain(img, r)
-    taps = blur_taps_batched(r).contiguous()
+        return blur_batched_plain(img, r, taps)
+    taps = taps.contiguous()
     return _launch(img.contiguous(), taps, taps.shape[-1], "blur_separable_batched")
 
 

@@ -39,11 +39,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from imagetransformations_tpu_torch.core.image import to_uint8_rint, to_uint8_trunc
+from imagetransformations_tpu_torch.core.image import to_uint8_rint, to_uint8_trunc, trig_f32
 from imagetransformations_tpu_torch.ops.hopper import _lib
-from imagetransformations_tpu_torch.ops.hopper.blur import blur_taps
 from imagetransformations_tpu_torch.ops.hopper.shear import _paeth_params, _row_shifts
-from imagetransformations_tpu_torch.ops.stencil import gaussian_blur
+from imagetransformations_tpu_torch.ops.stencil import (
+    cv2_gaussian_ksize,
+    gaussian_blur,
+    gaussian_taps,
+)
 
 #: kernel launches, by kernel (the package-wide counters of ``_lib``): each
 #: wrapper call that launches its kernel (the luma kernel: its row launch
@@ -58,6 +61,16 @@ _LUMA_WEIGHTS = (19595, 38470, 7471)  # PIL L24 weights of R, G, B
 
 
 @functools.lru_cache(maxsize=64)
+def blur_taps_f32(radius: float, device: torch.device) -> torch.Tensor:
+    """The fused kernels' f32 cv2 taps [K] of ``radius`` on ``device`` (host
+    f64, cast), as the JAX megakernels take them: the stream chain and the
+    strict fused stage keep the JAX package's f32 blur, while
+    ``stencil.gaussian_blur`` computes cv2's 8U integers."""
+    k = cv2_gaussian_ksize(float(radius))
+    return torch.from_numpy(gaussian_taps(k, float(radius)).astype(np.float32)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
 def _params(h: int, w: int, radius: float, angle_deg: float, device: torch.device):
     """(taps f32 [2p+1], p, k1 i32 [h], f1 f32 [h], k2 i32 [w], f2 f32 [w])
     on ``device``. Shifts are f32 from the f64 host math; k = floor(s) and
@@ -66,7 +79,7 @@ def _params(h: int, w: int, radius: float, angle_deg: float, device: torch.devic
     lie off the canvas there, so the output is the same and near 180
     degrees the shift still fits an i32."""
     if radius > 0:
-        taps = blur_taps(radius, device)
+        taps = blur_taps_f32(radius, device)
     else:
         taps = torch.ones(1, dtype=torch.float32, device=device)
     a, b = _paeth_params(angle_deg)
@@ -96,12 +109,14 @@ def _traced_params(angles, n: int, h: int, w: int, max_angle_deg: float,
     in the op order of the JAX package's traced kernels
     (megakernel.py:1101-1116; not the host f64 of the static path):
     clip to the budget, t = deg2rad(-angle), a = -tan(t/2), b = sin(t),
-    shifts a*ys and b*xs, k = floor, f = s - k. identity is 1 where t == 0."""
+    shifts a*ys and b*xs, k = floor, f = s - k. identity is 1 where t == 0.
+    The tangent and the sine are the correctly rounded f32 values of the
+    f32 arguments (``trig_f32``), the same on every device."""
     ang = torch.as_tensor(angles, dtype=torch.float32, device=device)
     ang = torch.clamp(ang, -max_angle_deg, max_angle_deg)
     t = torch.deg2rad(-ang).reshape(-1).expand(n)
-    a = -torch.tan(t / 2.0)
-    b = torch.sin(t)
+    a = -trig_f32(torch.tan, t / 2.0)
+    b = trig_f32(torch.sin, t)
     ys = torch.arange(h, dtype=torch.float32, device=device) + 0.5 - h / 2.0
     xs = torch.arange(w, dtype=torch.float32, device=device) + 0.5 - w / 2.0
     sx = a[:, None] * ys[None, :]

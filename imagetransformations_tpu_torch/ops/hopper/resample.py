@@ -11,11 +11,16 @@ Counterparts of ``imagetransformations_tpu/ops/pallas/resample.py``:
   which does the JAX package's two passes in one.
 
 Beside each wrapper sits its plain PyTorch version, which repeats the
-kernel's f32 arithmetic op for op. A CPU tensor runs the plain version, a
-CUDA tensor the kernel (or the call raises); nothing falls back.
+kernel's f32 arithmetic op for op. The shear's canvas shift ``ceil(s*h)``
+is an integer made in f64 (``canvas_shifts``, ``shear_shift_table``), as
+PIL's caller takes it, and handed to both. A CPU tensor runs the plain
+version, a CUDA tensor the kernel (or the call raises); nothing falls back.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -34,11 +39,44 @@ def _check(x: torch.Tensor, factors: torch.Tensor) -> None:
         raise ValueError("factors must be a contiguous f32 [n] tensor on the image's device")
 
 
-def shear_bicubic_plain(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``shear_bicubic``: NHWC u8, f32 factors [n]."""
+def canvas_shifts(factors: torch.Tensor, h: int) -> torch.Tensor:
+    """The widened canvas's shift of each image, int32 [n] on the factors'
+    device: ``ceil(v*h)`` for v > 0, else 0, with v the f64 value of each
+    f32 factor and the product taken in f64, as PIL's Python caller does
+    (transformation.py:212-226). An IEEE f64 multiply and ceil give the same
+    bits on every device. (The JAX kernel takes ``ceil(s*h)`` in f32, which
+    moves whole rows by a pixel at some (s, h): h = 10 at s = 0.1 gives 2
+    against 1.)"""
+    v = factors.to(torch.float64)
+    return torch.where(v > 0, torch.ceil(v * float(h)), 0.0).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def shear_shift_table(grid: tuple, h: int, device: torch.device) -> torch.Tensor:
+    """``ceil(v*h)`` (v > 0, else 0) of each grid value ``v``, a Python
+    float (the value the reference hands PIL, before any f32 cast), in
+    host f64, as int32 on ``device`` (made once a (grid, h, device)): the
+    sweep's shifts, gathered by each image's drawn index."""
+    shifts = [math.ceil(v * h) if v > 0 else 0 for v in grid]
+    return torch.tensor(shifts, dtype=torch.int32, device=device)
+
+
+def _shifts_of(factors: torch.Tensor, h: int, shifts) -> torch.Tensor:
+    if shifts is None:
+        return canvas_shifts(factors, h)
+    shifts = torch.as_tensor(shifts, dtype=torch.int32, device=factors.device).reshape(-1)
+    if shifts.shape != factors.shape:
+        raise ValueError(f"expected {factors.shape[0]} shifts, got shape {tuple(shifts.shape)}")
+    return shifts.contiguous()
+
+
+def shear_bicubic_plain(x: torch.Tensor, factors: torch.Tensor,
+                        shifts: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``shear_bicubic``: NHWC u8, f32 factors [n], int32
+    canvas shifts [n] (default ``canvas_shifts``)."""
     n, h, w, c = x.shape
     s = factors.reshape(n, 1, 1)
-    m2 = -torch.where(s > 0, torch.ceil(s * float(h)), 0.0)
+    m2 = -_shifts_of(factors.reshape(-1), h, shifts).to(torch.float32).reshape(n, 1, 1)
     xo = torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, w) + 0.5
     yo = torch.arange(h, dtype=torch.float32, device=x.device).view(1, h, 1) + 0.5
     xx = (xo + s * yo) + m2  # [n, h, w]
@@ -62,33 +100,40 @@ def shear_bicubic_plain(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, out, 255.0).to(torch.uint8)
 
 
-def shear_bicubic(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
-    """NHWC u8 -> NHWC u8, one f32 shear factor an image.
+def shear_bicubic(x: torch.Tensor, factors: torch.Tensor,
+                  shifts: torch.Tensor | None = None) -> torch.Tensor:
+    """NHWC u8 -> NHWC u8, one f32 shear factor an image, and its int32
+    canvas shift (default ``canvas_shifts(factors, h)``).
 
     On CUDA: ``csrc/shear_bicubic.cu``; on the CPU: the plain version."""
     if x.device.type == "cpu":
-        return shear_bicubic_plain(x, factors)
+        return shear_bicubic_plain(x, factors, shifts)
     _check(x, factors)
     n, h, w, c = x.shape
+    m = _shifts_of(factors, h, shifts)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     name = "shear_bicubic"
     lib = _lib.load(name)
     with torch.cuda.device(x.device):
-        err = lib.shear_bicubic(x.data_ptr(), out.data_ptr(), factors.data_ptr(), n, h, w, c,
-                                torch.cuda.current_stream(x.device).cuda_stream)
+        err = lib.shear_bicubic(x.data_ptr(), out.data_ptr(), factors.data_ptr(), m.data_ptr(),
+                                n, h, w, c, torch.cuda.current_stream(x.device).cuda_stream)
     _lib.check(name, err)
     _lib.LAUNCHES[name] += 1
     return out
 
 
-def shear_bicubic_batched(img: torch.Tensor, factors, max_shear: float = 1.05) -> torch.Tensor:
+def shear_bicubic_batched(img: torch.Tensor, factors, max_shear: float = 1.05,
+                          shifts=None) -> torch.Tensor:
     """Reference apply_shear (PIL AFFINE BICUBIC on a widened canvas, white
     fill) cropped back to the input width, with one factor an image in
     [0, max_shear], on the tensor's device. Bit-exact against
     ``apply_shear(...)[:, :, :w]``.
 
+    ``shifts``: each image's canvas shift ``ceil(v*h)`` (int32 [n]) where the
+    caller has it (the sweep gathers it by drawn index from
+    ``shear_shift_table``); by default ``canvas_shifts`` of the factors.
     ``max_shear`` is the JAX signature's routing budget; the CUDA kernel
     gathers its taps directly and needs none, so it only documents the
     range the caller promises."""
@@ -97,7 +142,7 @@ def shear_bicubic_batched(img: torch.Tensor, factors, max_shear: float = 1.05) -
     f = torch.as_tensor(factors, dtype=torch.float32, device=img.device).reshape(-1)
     if f.numel() == 1:
         f = f.expand(img.shape[0])
-    return shear_bicubic(img.contiguous(), f.contiguous())
+    return shear_bicubic(img.contiguous(), f.contiguous(), shifts)
 
 
 # ------------------------------------------------------------ bilinear zoom

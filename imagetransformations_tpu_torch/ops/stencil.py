@@ -1,28 +1,30 @@
 """Stencil ops (PyTorch): Gaussian and motion blur, PIL sharpen.
 
-Host-side constants (``cv2_gaussian_ksize``, ``gaussian_taps``) are computed
-in float64; the fused kernels and their plain versions cast the taps to
-float32 exactly where they multiply.
-
 Counterparts of ``imagetransformations_tpu/ops/stencil.py``, which XLA
 compiles (no Pallas kernel there):
 
 - ``gaussian_blur`` (one radius) and ``apply_blur`` (one radius an image):
-  cv2.GaussianBlur, an H pass then a W pass over NHWC f32, taps summed left
-  to right (t = 0..K-1), numpy "reflect" (cv2 reflect-101) borders, rint at
-  the end. Per-image radii use taps computed in f32 on the device and
-  zero-padded to ``MAX_BLUR_KSIZE``, as the JAX package does. On a CUDA u8
-  batch both run the hand-written kernel of ``ops.hopper.blur``
-  (``blur_separable``, ``blur_separable_batched``), which computes this
-  function in this order (the JAX ``blur_separable`` is the Pallas form of
-  the one-radius blur); elsewhere, and for f32 input, their plain PyTorch
-  forms ``gaussian_blur_plain`` and ``blur_batched_plain``.
+  cv2.GaussianBlur. On uint8 input, cv2's own 8U arithmetic, in integers
+  (``cv2_taps_q8``): taps with 8 fraction bits, integer sums along H and
+  along W with reflect-101 borders, and one rounding at the end,
+  ``(sum + 2^15) >> 16``. This equals ``cv2.GaussianBlur`` bit for bit; the
+  JAX package computes the blur in f32 and differs from cv2 by 1-2 LSB on
+  6-23% of values. Per-image radii take each image's integer tap row,
+  zero-padded to ``MAX_BLUR_KSIZE`` (wider for radii beyond 5). On a CUDA u8 batch both run the
+  hand-written kernel of ``ops.hopper.blur`` (``blur_separable``,
+  ``blur_separable_batched``), which computes this function; elsewhere
+  their plain PyTorch forms ``gaussian_blur_plain`` and
+  ``blur_batched_plain``. Float input keeps cv2's float path: f32 taps, an
+  H pass then a W pass, taps summed left to right (t = 0..K-1).
 - ``motion_blur``: horizontal 1 x k mean (cv2.filter2D, reflect-101).
 - ``sharpen``: PIL ImageEnhance.Sharpness, the SMOOTH 3x3 filter with its
   exact integer sum and one division by 13, then a trunc blend.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -50,6 +52,54 @@ def gaussian_taps(ksize: int, sigma: float) -> np.ndarray:
     return w / w.sum()
 
 
+@functools.lru_cache(maxsize=256)
+def _taps_q8(ksize: int, sigma: float) -> tuple[int, ...]:
+    half = (ksize - 1) // 2
+    scale = -0.125 / (sigma * sigma)
+    # cv2's f64 Gaussian (getGaussianKernelBitExact): x steps by 2 from 1 - K
+    vals = [math.exp(float(x * x) * scale) for x in range(1 - ksize, 0, 2)]
+    total = 0.0
+    for v in vals:
+        total += v
+    mul = 1.0 / (2.0 * total + 1.0)
+    # 8 fraction bits by error diffusion from the outer taps inward
+    # (getGaussianKernelFixedPoint_ED); round() is half to even, as cvRound
+    out, err = [0] * ksize, 0.0
+    for i, v in enumerate(vals):
+        adj = v * mul * 256.0 + err
+        q = round(adj)
+        err = adj - q
+        out[i] = out[ksize - 1 - i] = q
+    out[half] = 256 - 2 * sum(out[:half])
+    return tuple(out)
+
+
+def cv2_taps_q8(radius: float) -> np.ndarray:
+    """cv2.GaussianBlur's 8U kernel for ``radius`` (ksize = int(6r) forced
+    odd, min 3, sigma = r): int32 [K] taps with 8 fraction bits summing to
+    256. Radius 0 gives the delta row [256]."""
+    if radius == 0:
+        return np.asarray([256], np.int32)
+    return np.asarray(_taps_q8(cv2_gaussian_ksize(float(radius)), float(radius)), np.int32)
+
+
+def blur_tap_rows(radii, device: torch.device) -> torch.Tensor:
+    """Each radius's ``cv2_taps_q8`` centred in a zero-padded row: int32
+    [N, W] on ``device``, W the larger of ``MAX_BLUR_KSIZE`` and the widest
+    window (radius 0: the delta row). The rows are made on the host: radii
+    on the card are read back first, which waits for the card (the sweep
+    gathers its rows from a table of the grid's rows instead)."""
+    r = torch.as_tensor(radii, dtype=torch.float64).reshape(-1).cpu().numpy()
+    uniq, inv = np.unique(r, return_inverse=True)
+    taps = [cv2_taps_q8(float(v)) for v in uniq]
+    width = max([MAX_BLUR_KSIZE] + [t.size for t in taps])
+    rows = np.zeros((len(taps), width), np.int32)
+    for i, t in enumerate(taps):
+        p = (width - t.size) // 2
+        rows[i, p : p + t.size] = t
+    return torch.from_numpy(rows[inv.reshape(-1)]).to(device)
+
+
 def _reflect_indices(size: int, p: int, device: torch.device) -> torch.Tensor:
     """Source index of each of the size + 2p positions of a numpy
     ``mode="reflect"`` pad (edge not repeated; reflects again as often as
@@ -63,9 +113,10 @@ def _reflect_indices(size: int, p: int, device: torch.device) -> torch.Tensor:
 
 
 def _conv1d(x: torch.Tensor, taps: torch.Tensor, dim: int) -> torch.Tensor:
-    """Separable 1-D pass along H (dim 1) or W (dim 2) of NHWC f32, reflect
+    """Separable 1-D pass along H (dim 1) or W (dim 2) of NHWC, reflect
     borders. ``taps`` is [K] (shared) or [N, K] (one row an image); the taps
-    are summed left to right as acc + x[t] * w[t]."""
+    are summed left to right as acc + x[t] * w[t] (f32: each op rounded;
+    int32: exact)."""
     k = taps.shape[-1]
     p = k // 2
     size = x.shape[dim]
@@ -80,6 +131,14 @@ def _conv1d(x: torch.Tensor, taps: torch.Tensor, dim: int) -> torch.Tensor:
     return acc
 
 
+def _blur_q8(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """cv2's 8U blur of the NHWC u8 batch ``x`` with int32 taps [K] or
+    [N, K] (8 fraction bits): integer sums along H, then W (each row sum is
+    at most 65280, the total below 2^24), then ``(sum + 2^15) >> 16``."""
+    acc = _conv1d(_conv1d(x.to(torch.int32), taps, 1), taps, 2)
+    return ((acc + 32768) >> 16).to(torch.uint8)
+
+
 def gaussian_blur_plain(img: torch.Tensor, radius: float) -> torch.Tensor:
     """cv2.GaussianBlur with one radius for the batch, in plain PyTorch on
     the tensor's device (the plain version of the ``blur_separable``
@@ -87,6 +146,9 @@ def gaussian_blur_plain(img: torch.Tensor, radius: float) -> torch.Tensor:
     if radius == 0:
         return img
     x, single = as_batch(img)
+    if x.dtype == torch.uint8:
+        taps = torch.from_numpy(cv2_taps_q8(float(radius))).to(x.device)
+        return restore_layout(_blur_q8(x, taps), single)
     k = cv2_gaussian_ksize(float(radius))
     taps = torch.from_numpy(gaussian_taps(k, float(radius)).astype(np.float32)).to(x.device)
     out = _conv1d(_conv1d(as_float(x), taps, 1), taps, 2)
@@ -108,7 +170,8 @@ def gaussian_blur(img: torch.Tensor, radius: float) -> torch.Tensor:
 
 
 def blur_taps_batched(radii, max_ksize: int = MAX_BLUR_KSIZE) -> torch.Tensor:
-    """Per-image cv2 Gaussian taps in f32, zero-padded to a fixed width -> [N, K].
+    """Per-image cv2 Gaussian taps in f32, zero-padded to a fixed width -> [N, K]:
+    the float-input path of ``blur_batched_plain``.
 
     The ksize rule int(6r) -> odd -> min 3 in tensor arithmetic; radius 0
     gives a delta row. Same f32 op order as the JAX package's, with two
@@ -152,12 +215,19 @@ def apply_blur(img: torch.Tensor, radius) -> torch.Tensor:
     return blur_batched_plain(img, radius)
 
 
-def blur_batched_plain(img: torch.Tensor, radii) -> torch.Tensor:
+def blur_batched_plain(img: torch.Tensor, radii, taps: torch.Tensor | None = None) -> torch.Tensor:
     """cv2.GaussianBlur with one radius an image, in plain PyTorch on the
-    tensor's device: the two passes with each image's zero-padded 31-wide
-    tap row (the plain version of the ``blur_separable_batched`` kernel for
-    u8 input)."""
+    tensor's device (the plain version of the ``blur_separable_batched``
+    kernel for u8 input): the two passes with each image's zero-padded tap
+    row. u8 takes cv2's integer rows (``taps``, int32 [N, W], when the
+    caller has them, else ``blur_tap_rows``), exact at any radius; float
+    input the f32 rows of ``blur_taps_batched``, cut to 31 taps as the JAX
+    package cuts them."""
     x, single = as_batch(img)
+    if x.dtype == torch.uint8:
+        if taps is None:
+            taps = blur_tap_rows(radii, x.device)
+        return restore_layout(_blur_q8(x, taps), single)
     taps = blur_taps_batched(torch.as_tensor(radii, dtype=torch.float32, device=x.device))
     out = _conv1d(_conv1d(as_float(x), taps, 1), taps, 2)
     return restore_layout(finalize(out, img.dtype, "rint"), single)

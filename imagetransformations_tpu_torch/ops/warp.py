@@ -37,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from imagetransformations_tpu_torch.core.image import as_batch, as_float, restore_layout
+from imagetransformations_tpu_torch.core.image import as_batch, as_float, restore_layout, trig_f32
 from imagetransformations_tpu_torch.ops.hopper.resample import zoom_bilinear_batched
 from imagetransformations_tpu_torch.ops.hopper.rotate_gather import (  # noqa: F401
     pil_rotate_matrix,
@@ -61,10 +61,11 @@ def rotation_matrix(angle_deg, w: int, h: int, device=None) -> torch.Tensor:
     angle) for a scalar or [N] angles in degrees (PIL rotate(-angle): the
     two negations cancel into PIL's matrix convention). f32 throughout, in
     the JAX package's op order, every op rounded on its own:
-    ``m2 = (m0*(-cx) + m1*(-cy)) + cx``. ``device``: where to compute it
-    (cos and sin differ by an ulp between devices), by default the angles'."""
+    ``m2 = (m0*(-cx) + m1*(-cy)) + cx``; cos and sin are the correctly
+    rounded f32 values (``trig_f32``), the same on every device.
+    ``device``: where to compute it, by default the angles'."""
     a = torch.deg2rad(_f32_vector(angle_deg, device))
-    cos, sin = torch.cos(a), torch.sin(a)
+    cos, sin = trig_f32(torch.cos, a), trig_f32(torch.sin, a)
     cx, cy = w / 2.0, h / 2.0
     m0, m1, m3, m4 = cos, sin, -sin, cos
     m2 = (m0 * (-cx) + m1 * (-cy)) + cx

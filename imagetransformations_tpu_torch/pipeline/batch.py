@@ -5,21 +5,26 @@ loops images x 8 transform types in Python, drawing a grid value per
 (image, type) (transformation.py:92-170); here each type draws one ``[N]``
 value vector from its grid and runs over the whole batch at once.
 
-Three types run hand-written CUDA kernels on the card, by flag:
+Four types run hand-written CUDA kernels on the card, by flag:
 
 - rotation: ``fused_blur_rotate_batched`` (strict, radius 0: the rgb
   blur-rotate kernel with per-image shifts); with
   ``pil_parity_rotation=True`` Pillow's fixed-point NEAREST rotation
   (``pil_rotate_nearest``), each image's coefficient row gathered by its
   drawn grid index from a table kept on the device.
-- shear: the PIL BICUBIC shear (``shear_bicubic_batched``); with
+- shear: the PIL BICUBIC shear (``shear_bicubic_batched``), each image's
+  canvas shift ``ceil(v*h)`` gathered by its drawn grid index from a table
+  made on the host in f64 (PIL's rule); with
   ``pil_parity_scale_shear=False`` the row-shift shear
-  (``shear_rows_logrouted``).
+  (``shear_rows_logrouted``), which keeps the JAX package's f32 shift.
+- blur: cv2's 8U blur (``blur_separable_batched``), each image's integer
+  tap row gathered by its drawn grid index from a table made on the host.
 - scale: with ``pil_parity_scale_shear=False`` the bilinear zoom
   (``zoom_bilinear_batched``); by default the exact LANCZOS scale, f64
   matrix products in plain PyTorch.
 
-The other five are plain PyTorch, as they are XLA code in the JAX package.
+The other four are plain PyTorch, as they are XLA code in the JAX package.
+No type reads anything back from the card.
 """
 
 from __future__ import annotations
@@ -37,9 +42,11 @@ from imagetransformations_tpu_torch.ops import elementwise as ew
 from imagetransformations_tpu_torch.ops import noise as nz
 from imagetransformations_tpu_torch.ops import stencil as st
 from imagetransformations_tpu_torch.ops import warp as wp
+from imagetransformations_tpu_torch.ops.hopper.blur import blur_separable_batched
 from imagetransformations_tpu_torch.ops.hopper.megakernel import fused_blur_rotate_batched
 from imagetransformations_tpu_torch.ops.hopper.resample import (
     shear_bicubic_batched,
+    shear_shift_table,
     zoom_bilinear_batched,
 )
 from imagetransformations_tpu_torch.ops.hopper import rotate_gather as rg
@@ -51,6 +58,12 @@ TYPES = ("scale", "rotation", "lighten_darken", "gaussian_noise", "translation",
 
 def _grid(name: str) -> tuple[float, ...]:
     return tuple(float(v) for v in PARAM_GRIDS[name].values())
+
+
+def _grid_f64(name: str) -> tuple[float, ...]:
+    """The grid's values as the reference's Python floats (before the f32
+    cast of ``ParamGrid.values``)."""
+    return tuple(float(v) for v in PARAM_GRIDS[name].values_f64())
 
 
 def _rotation_by_unique_angle(x, values, generator):
@@ -118,7 +131,6 @@ def _zoom_fast(x, values):
 _BATCHED_OPS: dict[str, Callable] = {
     "lighten_darken": lambda x, v, g: ew.apply_brightness(x, v),
     "contrast": lambda x, v, g: ew.apply_contrast(x, v),
-    "blur": lambda x, v, g: st.apply_blur(x, v),
     "gaussian_noise": lambda x, v, g: nz.apply_gaussian_noise(x, v, generator=g),
     "rotation": _rotation_by_unique_angle,
     "translation": _translation_fast,
@@ -130,18 +142,40 @@ _BATCHED_OPS: dict[str, Callable] = {
 
 def _apply_per_value(images: torch.Tensor, t: str, values: torch.Tensor) -> torch.Tensor:
     """Exact PIL semantics for the canvas-changing ops, one value an image:
-    BICUBIC shear on the widened canvas cropped to w (kernel #11), LANCZOS
-    scale by fixed-point matrices, Pillow's NEAREST rotation (kernel #12,
-    Pillow's fixed point, exact for any values: their coefficients come
-    from the host, see ``_rotation_pil`` for the sweep's drawn indices)."""
-    grid = _grid({"scale": "scale", "shear": "shear", "rotation_pil": "rotation"}[t])
-    if t == "shear" and min(grid) >= 0.0:
-        return shear_bicubic_batched(images, values, max_shear=max(grid) + 0.05)
+    LANCZOS scale by fixed-point matrices, Pillow's NEAREST rotation
+    (kernel #12, Pillow's fixed point, exact for any values: their
+    coefficients come from the host). The sweep's shear takes its drawn
+    indices to ``_shear_pil``, its PIL rotation to ``_rotation_pil``."""
     if t == "scale":
-        return wp.apply_scale_batched(images, values, grid)
+        return wp.apply_scale_batched(images, values, _grid("scale"))
     if t == "rotation_pil":
         return rg.pil_rotate_nearest_batched(images, values)
-    return _value_sweep_per_value(images, values, t, grid)
+    raise ValueError(f"no per-value route for {t!r}")
+
+
+def _shear_pil(images: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """PIL's BICUBIC shear of each image by its drawn grid index ``i``
+    (``sample_indices``), its canvas shift gathered on the device from the
+    grid's f64 table (the grid is 0..1: the kernel's range)."""
+    shifts = shear_shift_table(_grid_f64("shear"), images.shape[1], images.device)
+    return shear_bicubic_batched(images, values, max_shear=max(_grid("shear")) + 0.05,
+                                 shifts=shifts[idx.to(images.device)])
+
+
+@functools.lru_cache(maxsize=16)
+def _blur_table(grid: tuple, device: torch.device) -> torch.Tensor:
+    """``stencil.blur_tap_rows`` of each grid radius, in grid order (int32
+    [len(grid), MAX_BLUR_KSIZE]) on ``device``, made on the host once a
+    (grid, device)."""
+    return st.blur_tap_rows(grid, device)
+
+
+def _blur_grid(images: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """cv2's blur of each image at its drawn grid radius: the integer tap
+    rows gathered on the device from the grid's table, so nothing is read
+    back to the host."""
+    table = _blur_table(_grid_f64("blur"), images.device)
+    return blur_separable_batched(images, values, taps=table[idx.to(images.device)])
 
 
 @functools.lru_cache(maxsize=16)
@@ -163,20 +197,6 @@ def _rotation_pil(images: torch.Tensor, idx: torch.Tensor, grid: tuple) -> torch
         values = torch.tensor(grid, dtype=torch.float32)[idx.cpu()]
         return rg.pil_rotate_nearest_batched(images, values)
     return rg.pil_rotate_nearest(images.contiguous(), table[idx.to(images.device)], 0)
-
-
-def _value_sweep_per_value(images, values, t: str, grid: tuple):
-    """Every grid value applied to the whole batch (``apply_shear`` cropped
-    to w), each image taking its own value's row: for shear grids below 0,
-    which the batched kernel does not take."""
-    if t != "shear":
-        raise ValueError(t)
-    w = images.shape[2]
-    vd = torch.as_tensor(values, dtype=torch.float32, device=images.device).reshape(-1, 1, 1, 1)
-    out = torch.zeros_like(images)
-    for v in grid:
-        out = torch.where(vd == v, wp.apply_shear(images, v)[:, :, :w], out)
-    return out
 
 
 def apply_all_transformations(
@@ -221,7 +241,11 @@ def apply_all_transformations(
         idx, values = sample_indices(generator, t, n)
         if t == "rotation" and pil_parity_rotation:
             results = _rotation_pil(x, idx, _grid(t))
-        elif t in ("shear", "scale") and pil_parity_scale_shear:
+        elif t == "shear" and pil_parity_scale_shear:
+            results = _shear_pil(x, idx, values)
+        elif t == "blur":
+            results = _blur_grid(x, idx, values)
+        elif t == "scale" and pil_parity_scale_shear:
             results = _apply_per_value(x, t, values)
         elif t in _BATCHED_OPS:
             results = _BATCHED_OPS[t](x, values, generator)

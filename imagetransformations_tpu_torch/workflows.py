@@ -1,0 +1,172 @@
+"""End-to-end workflows — the reference's main scripts as APIs (PyTorch).
+
+Counterpart of ``imagetransformations_tpu/workflows.py``. Ported so far:
+
+- ``transform_folder``  <- transformation.py __main__: folder -> 8-transform
+  sweep -> save.
+- ``chain_folder``      <- the JAX CLI's ``chain`` command: folder -> one
+  op-chain -> save.
+
+The research workflows (uncertainty report, refinement, TENT, SWAG) wait
+for the port's models and evaluation modules (ROADMAP A.4-A.8).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from imagetransformations_tpu_torch.core.image import entry_device
+
+
+class _Stages:
+    """Wall seconds of a folder run's stages into ``stats`` (each stage ends
+    after the card has finished the work queued so far), and the device
+    stream's time of the compute stage by CUDA events on the card."""
+
+    def __init__(self, stats: dict | None, dev: torch.device):
+        self.stats = {} if stats is None else stats
+        self.dev = dev
+
+    def timed(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        if name == "compute" and self.dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            stop.record()
+        else:
+            out = fn(*args)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.stats[f"{name}_s"] = time.perf_counter() - t0
+        if name == "compute" and self.dev.type == "cuda":
+            self.stats["compute_event_ms"] = start.elapsed_time(stop)
+        return out
+
+
+def _stem(path: str) -> str:
+    return os.path.splitext(os.path.basename(path))[0]
+
+
+def _encode(arrs: np.ndarray, out_paths: list[str], native: bool) -> None:
+    from imagetransformations_tpu_torch.pipeline import native_io
+
+    if native and arrs.shape[-1] == 3:
+        native_io.encode_batch(arrs, out_paths)
+        return
+    from PIL import Image
+
+    for img, p in zip(arrs, out_paths):
+        Image.fromarray(img).save(p)
+
+
+def _load(in_dir: str, size, native, stages: _Stages):
+    """(images on the host, paths, native): the folder decoded, natively
+    when ``native`` is None (auto) and the codec builds and ``size`` is
+    given."""
+    from imagetransformations_tpu_torch.pipeline import native_io
+    from imagetransformations_tpu_torch.pipeline.io import load_folder_images
+
+    if native is None:
+        native = size is not None and native_io.native_available()
+    imgs, paths = stages.timed("decode", load_folder_images, in_dir, size, native)
+    stages.stats["images"] = len(paths)
+    return imgs, paths, native
+
+
+def transform_folder(
+    in_dir: str,
+    out_dir: str,
+    generator: torch.Generator | None = None,
+    size: tuple[int, int] | None = None,
+    native: bool | None = None,
+    device: str | torch.device | None = None,
+    stats: dict | None = None,
+) -> dict:
+    """transformation.py __main__ equivalent: folder -> 8-type random-grid
+    transform sweep (``apply_all_transformations`` with its default flags)
+    -> jpegs named ``{stem}_{type}_{round(v, 2)}_corrupted.jpeg``. Returns
+    ``{type: [file names]}``; an empty folder gives ``{}``.
+
+    Runs on ``device`` (None means "cuda", which raises without a GPU;
+    "cpu" runs the plain PyTorch versions). ``generator`` draws the grid
+    values (a ``torch.Generator`` on that device; by default one seeded
+    with 0). ``native`` routes decode AND encode through the multithreaded
+    C++ libjpeg path (``pipeline.native_io``); the default auto-detects
+    (native when the library builds and ``size`` is given — decode needs a
+    target size — PIL otherwise).
+
+    ``stats``: a dict that receives the wall seconds of each stage
+    (``decode_s``, ``h2d_s``, ``compute_s`` (the sweep), ``d2h_s``,
+    ``encode_s``), the sweep's device-stream time by CUDA events on the card
+    (``compute_event_ms``) and ``images``.
+    """
+    from imagetransformations_tpu_torch.pipeline.batch import apply_all_transformations
+
+    dev = entry_device(device, "transform_folder")
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    stages = _Stages(stats, dev)
+    imgs, paths, native = _load(in_dir, size, native, stages)
+    if len(paths) == 0:
+        return {}
+    x = stages.timed("h2d", lambda: torch.from_numpy(imgs).to(dev))
+    res = stages.timed("compute", lambda: apply_all_transformations(x, generator, device=dev))
+    host = stages.timed("d2h", lambda: {t: (v.cpu().numpy(), a.cpu().numpy())
+                                        for t, (v, a) in res.items()})
+
+    def write():
+        os.makedirs(out_dir, exist_ok=True)
+        written = {}
+        for t, (vals, arrs) in host.items():
+            names = [f"{_stem(p)}_{t}_{round(float(v), 2)}_corrupted.jpeg"
+                     for p, v in zip(paths, vals)]
+            _encode(arrs, [os.path.join(out_dir, fn) for fn in names], native)
+            written[t] = names
+        return written
+
+    return stages.timed("encode", write)
+
+
+def chain_folder(
+    in_dir: str,
+    out_dir: str,
+    chain,
+    strict_parity: bool = False,
+    fast_compile: bool = False,
+    generator: torch.Generator | None = None,
+    size: tuple[int, int] | None = None,
+    native: bool | None = None,
+    device: str | torch.device | None = None,
+    stats: dict | None = None,
+) -> list[str]:
+    """A folder through one op-chain (``build_chain_fn``) -> jpegs named
+    ``{stem}_chained.jpeg``; returns the paths written (none for an empty
+    folder). ``generator`` feeds the noise ops; ``size``, ``native``,
+    ``device`` and ``stats`` (``compute_s``: the chain) as in
+    ``transform_folder``."""
+    from imagetransformations_tpu_torch.pipeline.chain import build_chain_fn
+
+    dev = entry_device(device, "chain_folder")
+    fn = build_chain_fn(chain, strict_parity=strict_parity, fast_compile=fast_compile,
+                        device=dev)
+    stages = _Stages(stats, dev)
+    imgs, paths, native = _load(in_dir, size, native, stages)
+    if len(paths) == 0:
+        return []
+    x = stages.timed("h2d", lambda: torch.from_numpy(imgs).to(dev))
+    out = stages.timed("compute", fn, x, generator)
+    arrs = stages.timed("d2h", lambda: out.cpu().numpy())
+
+    def write():
+        os.makedirs(out_dir, exist_ok=True)
+        out_paths = [os.path.join(out_dir, f"{_stem(p)}_chained.jpeg") for p in paths]
+        _encode(arrs, out_paths, native)
+        return out_paths
+
+    return stages.timed("encode", write)

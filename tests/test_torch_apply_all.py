@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import cv2
 import jax.numpy as jnp
 
 from imagetransformations_tpu import ops as jops
@@ -39,6 +40,28 @@ def _grid(name):
 
 def _draw(rng, name, n):
     return rng.choice(_grid(name), n).astype(np.float32)
+
+
+def _cv2_blur(imgs, radius):
+    """cv2.GaussianBlur (the reference's call) of each image; radius 0 is the
+    identity, as in the reference's apply_blur."""
+    r = float(radius)
+    if r == 0:
+        return imgs.copy()
+    k = tst.cv2_gaussian_ksize(r)
+    return np.stack([cv2.GaussianBlur(im, (k, k), r) for im in imgs])
+
+
+#: the JAX blur (f32) against cv2's integer blur, which the port computes:
+#: max LSB and share of values off (measured on the inputs of the tests
+#: here: up to 2 LSB, on up to 23.6% of values)
+JAX_BLUR_BUDGET = (2, 0.25)
+
+
+def _within(got, want, budget):
+    err = np.abs(np.asarray(got).astype(int) - np.asarray(want).astype(int))
+    assert err.max() <= budget[0] and (err > 0).mean() <= budget[1], (err.max(),
+                                                                      (err > 0).mean())
 
 
 # ---------------------------------------------------------------- grids
@@ -127,21 +150,24 @@ def test_blur_taps_batched_within_two_ulps_of_jax():
 
 @pytest.mark.parametrize("shape", [(8, 40, 36, 3), (4, 32, 32, 3), (3, 17, 20, 3)])
 def test_blur_batched_matches_jax(rng, shape):
+    """One radius an image: cv2 per image at 0 LSB; the JAX per-image blur
+    (f32) within its budget."""
     imgs = rng.integers(0, 256, shape, dtype=np.uint8)
     radii = _draw(rng, "blur", shape[0])
     got = tst.apply_blur(torch.from_numpy(imgs), torch.from_numpy(radii)).numpy()
-    want = np.asarray(jst._blur_batched(jnp.asarray(imgs), jnp.asarray(radii)))
-    err = np.abs(got.astype(int) - want.astype(int))
-    assert err.max() <= 1 and (err > 0).mean() <= 0.001, (err.max(), (err > 0).mean())
+    want = np.concatenate([_cv2_blur(imgs[i : i + 1], r) for i, r in enumerate(radii)])
+    np.testing.assert_array_equal(got, want)
+    _within(got, np.asarray(jst._blur_batched(jnp.asarray(imgs), jnp.asarray(radii))),
+            JAX_BLUR_BUDGET)
 
 
 @pytest.mark.parametrize("radius", [0.0, 0.5, 1.5, 3.0])
 def test_gaussian_blur_static_matches_jax(rng, radius):
+    """One radius: cv2 at 0 LSB; the JAX blur (f32) within its budget."""
     imgs = rng.integers(0, 256, (2, 40, 36, 3), dtype=np.uint8)
     got = tst.apply_blur(torch.from_numpy(imgs), radius).numpy()
-    want = np.asarray(jst.apply_blur(jnp.asarray(imgs), radius))
-    err = np.abs(got.astype(int) - want.astype(int))
-    assert err.max() <= 1 and (err > 0).mean() <= 0.001, (err.max(), (err > 0).mean())
+    np.testing.assert_array_equal(got, _cv2_blur(imgs, radius))
+    _within(got, np.asarray(jst.apply_blur(jnp.asarray(imgs), radius)), JAX_BLUR_BUDGET)
 
 
 def test_translate_dynamic_matches_jax(rng):
@@ -192,14 +218,14 @@ def _per_image(res, t, fn, max_lsb=0, max_flip=0.0):
 )
 def test_apply_all_values_bind_to_outputs_exactly(sweep, t):
     """Each type's (values, out) equals that op applied per image with those
-    values (the JAX package's ops or oracles): 0 LSB. The blur is the JAX
-    per-image blur with the sweep's own (batched, f32-exp) taps."""
+    values (the JAX package's ops or oracles; the blur: cv2.GaussianBlur,
+    the reference's call): 0 LSB."""
     imgs, res = sweep
     x = jnp.asarray(imgs)
     fns = {
         "lighten_darken": lambda i, v: jops.apply_brightness(x[i : i + 1], v),
         "contrast": lambda i, v: jops.apply_contrast(x[i : i + 1], v),
-        "blur": lambda i, v: jops.apply_blur(x[i : i + 1], jnp.asarray([v], jnp.float32)),
+        "blur": lambda i, v: _cv2_blur(imgs[i : i + 1], v),
         "translation": lambda i, v: jops.apply_translation(x[i : i + 1], v),
         # per-op u8 quantization, as the JAX sweep's default rotation
         "rotation": lambda i, v: ofw.rotate_3shear(imgs[i : i + 1], v),
@@ -209,13 +235,14 @@ def test_apply_all_values_bind_to_outputs_exactly(sweep, t):
 
 
 def test_apply_all_blur_binds_to_the_static_blur(sweep):
-    """Against the one-radius blur (host f64 taps cast to f32) the batched
-    f32-exp taps may flip a rounding boundary: <= 1 LSB on <= 0.1%. The JAX
-    sweep's own blur differs from it the same way (r = 4.0 here)."""
+    """The sweep's blur (tap rows gathered by drawn grid index) equals the
+    port's one-radius blur of each image at 0 LSB; the JAX one-radius blur
+    (f32) is within its budget."""
     imgs, res = sweep
     x = jnp.asarray(imgs)
+    _per_image(res, "blur", lambda i, v: tst.apply_blur(torch.from_numpy(imgs[i : i + 1]), v))
     _per_image(res, "blur", lambda i, v: jops.apply_blur(x[i : i + 1], v),
-               max_lsb=1, max_flip=0.001)
+               max_lsb=JAX_BLUR_BUDGET[0], max_flip=JAX_BLUR_BUDGET[1])
 
 
 def test_apply_all_shear_binds_within_f64_budget(sweep):
@@ -268,14 +295,15 @@ def test_apply_all_unported_flags_raise(kwargs, item):
 
 
 def test_apply_all_unported_branches_raise():
-    """The fast shear branch and the per-grid-value sweep run: the fast
-    shear of factor 0 is the identity (shift 0 in every row), and the
-    sweep over (0.0,) is apply_shear(0)[:, :, :w], also the identity."""
+    """The fast shear branch and the sweep's PIL shear run: the fast shear
+    of factor 0 is the identity (shift 0 in every row), and the PIL shear
+    of grid value 0 (index 0) is apply_shear(0)[:, :, :w], also the
+    identity."""
     x = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 32, 32, 3),
                                                             dtype=np.uint8))
     v = torch.zeros(2)
     assert torch.equal(tbatch._BATCHED_OPS["shear"](x, v, None), x)
-    assert torch.equal(tbatch._value_sweep_per_value(x, v, "shear", (0.0,)), x)
+    assert torch.equal(tbatch._shear_pil(x, torch.zeros(2, dtype=torch.int64), v), x)
     assert torch.equal(tbatch._BATCHED_OPS["scale"](x, torch.ones(2), None), x)
 
 

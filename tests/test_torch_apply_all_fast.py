@@ -8,10 +8,9 @@ versions); each of those types is held, on the values the sweep drew,
 against the JAX functions the JAX sweep runs for it (``_zoom_fast``,
 ``_shear_fast_batched``, ``pil_rotate_nearest_batched``) and against exact
 numpy references; the other five types equal the default-flag sweep's.
-``_value_sweep_per_value`` (only reached by shear grids the batched
-kernel does not take) and the PIL rotation at a grid beyond 45 degrees are
-called directly and held against the JAX function (and the rotation
-against PIL itself, 0 LSB).
+The sweep's shear by drawn index (``_shear_pil``) is held against JAX's
+per-grid-value sweep, and the PIL rotation at a grid beyond 45 degrees
+against the JAX function and PIL itself (0 LSB).
 """
 
 import numpy as np
@@ -131,14 +130,15 @@ def test_pil_rotation_binds_to_the_jax_kernel(sweeps, imgs, name):
 
 
 def test_value_sweep_shear_matches_jax(rng):
-    """Each image takes apply_shear(v)[:, :, :w] of its own grid value:
-    <= 1 LSB on <= 2.5% of values against the JAX function (the BICUBIC
-    shear budget of tests/test_torch_apply_all.py)."""
+    """The sweep's shear (``_shear_pil``: each image by its drawn index into
+    the shear grid) gives each image apply_shear(v)[:, :, :w] of its own
+    grid value: <= 1 LSB on <= 2.5% of values against JAX's per-grid-value
+    sweep (the BICUBIC shear budget of tests/test_torch_apply_all.py)."""
     imgs = rng.integers(0, 256, (6, 24, 20, 3), dtype=np.uint8)
     vals = np.asarray([0.3, 0.0, 0.7, 0.3, 0.7, 0.0], np.float32)
     grid = (0.0, 0.3, 0.7)
-    out = tbatch._value_sweep_per_value(torch.from_numpy(imgs), torch.from_numpy(vals), "shear",
-                                        grid).numpy()
+    idx = torch.tensor([3, 0, 7, 3, 7, 0])  # positions in the shear grid 0:0.1:1
+    out = tbatch._shear_pil(torch.from_numpy(imgs), idx, torch.from_numpy(vals)).numpy()
     want = np.asarray(jbatch._value_sweep_per_value(jnp.asarray(imgs), jnp.asarray(vals),
                                                     "shear", grid))
     lsb, frac = _lsb(out, want)
@@ -152,7 +152,7 @@ def test_value_sweep_rotation_beyond_45_matches_jax(rng):
     any other: PIL's rotate(-v) of each image's value at 0 LSB; against the
     JAX per-value sweep (its kernel within 45 degrees, its f32 warp beyond)
     <= 0.5% of pixels in each image for |v| <= 45, <= 2.5% beyond (ROADMAP
-    C.2.9). The per-value sweep itself takes shear grids only."""
+    C.2.9). The per-value route takes scale and PIL rotation only."""
     imgs = rng.integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
     vals = np.asarray([60.0, -22.5, 15.0, 0.0, 60.0, -22.5], np.float32)
     grid = (-22.5, 0.0, 15.0, 60.0)
@@ -164,25 +164,19 @@ def test_value_sweep_rotation_beyond_45_matches_jax(rng):
         pil = np.asarray(Image.fromarray(imgs[i]).rotate(-float(v)))
         np.testing.assert_array_equal(out[i], pil, err_msg=str(v))
         assert (out[i] != want[i]).any(-1).mean() <= (0.005 if abs(v) <= 45 else 0.025), i
-    for t in ("scale", "rotation_pil"):
+    for t in ("shear", "blur"):
         with pytest.raises(ValueError):
-            tbatch._value_sweep_per_value(torch.from_numpy(imgs), torch.from_numpy(vals), t,
-                                          (1.0,))
+            tbatch._apply_per_value(torch.from_numpy(imgs), t, torch.from_numpy(vals))
 
 
 def test_apply_per_value_routes_grids_beyond_the_kernels(rng, monkeypatch):
-    """A shear grid below 0 takes the per-value sweep, as in the JAX
-    package; the default grids, and a rotation grid beyond 45 degrees,
-    take the kernels."""
+    """A rotation grid beyond 45 degrees takes the PIL rotation kernel like
+    the default grid; the sweep's shear takes its own route
+    (``_shear_pil``), which the per-value route refuses."""
     imgs = torch.from_numpy(rng.integers(0, 256, (2, 16, 16, 3), dtype=np.uint8))
-    calls = []
-    monkeypatch.setattr(tbatch, "_value_sweep_per_value",
-                        lambda x, v, t, grid: calls.append((t, grid)) or x)
-    tbatch._apply_per_value(imgs, "rotation_pil", torch.zeros(2))
-    tbatch._apply_per_value(imgs, "shear", torch.zeros(2))
-    assert calls == []
+    assert torch.equal(tbatch._apply_per_value(imgs, "rotation_pil", torch.zeros(2)), imgs)
     monkeypatch.setattr(tbatch, "_grid", lambda name: (-60.0, 0.0, 60.0))
     out = tbatch._apply_per_value(imgs, "rotation_pil", torch.tensor([60.0, -60.0]))
-    tbatch._apply_per_value(imgs, "shear", torch.zeros(2))
-    assert calls == [("shear", (-60.0, 0.0, 60.0))]
     assert torch.equal(out, tbatch.rg.pil_rotate_nearest_batched(imgs, [60.0, -60.0]))
+    with pytest.raises(ValueError):
+        tbatch._apply_per_value(imgs, "shear", torch.zeros(2))

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import cv2
 import jax.numpy as jnp
 
 from imagetransformations_tpu.oracle import fast_warp as ofw
@@ -26,6 +27,7 @@ from imagetransformations_tpu.pipeline import chain as jchain
 
 from imagetransformations_tpu_torch import OpSpec, build_chain_fn
 from imagetransformations_tpu_torch.ops.hopper import megakernel as mk
+from imagetransformations_tpu_torch.ops.stencil import cv2_gaussian_ksize
 from imagetransformations_tpu_torch.ops.hopper import shear as tshear
 from imagetransformations_tpu_torch.pipeline import chain as tchain
 
@@ -149,12 +151,20 @@ def test_budget_and_unported_inputs_raise(rng):
         mk.fused_blur_rotate_batched(imgs, 1.5, np.zeros(3, np.float32))  # 3 angles, 2 images
     with pytest.raises(ValueError):
         mk.fused_blur_rotate_batched(imgs[..., :1], 1.5, 5.0, grayscale_out=True)
-    # images smaller than the blur window + 2: gaussian_blur, then radius 0, as in JAX
+    # images smaller than the blur window + 2: gaussian_blur, then radius 0, as
+    # in JAX; the port's gaussian_blur is cv2's integer blur: 0 LSB against
+    # cv2's blur then the JAX function at radius 0, and the JAX function
+    # (f32 blur) within <= 1 LSB on <= 10% (measured 6.7%)
     tiny = rng.integers(0, 256, (2, 5, 48, 3), dtype=np.uint8)
     angles = np.asarray([5.0, -7.0], np.float32)
     out = mk.fused_blur_rotate_batched(torch.from_numpy(tiny), 1.5, angles).numpy()
+    k = cv2_gaussian_ksize(1.5)
+    blurred = np.stack([cv2.GaussianBlur(im, (k, k), 1.5) for im in tiny])
+    np.testing.assert_array_equal(out, np.asarray(jmk.fused_blur_rotate_batched(
+        jnp.asarray(blurred), 0.0, jnp.asarray(angles))))
     want = np.asarray(jmk.fused_blur_rotate_batched(jnp.asarray(tiny), 1.5, jnp.asarray(angles)))
-    np.testing.assert_array_equal(out, want)
+    err = np.abs(out.astype(int) - want.astype(int))
+    assert err.max() <= 1 and (err > 0).mean() <= 0.10, (err.max(), (err > 0).mean())
 
 
 def test_cpu_counts_no_launch(rng):

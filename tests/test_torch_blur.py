@@ -1,24 +1,25 @@
-"""The port's separable Gaussian blur (kernel #6) against the JAX package.
+"""The port's separable Gaussian blur (kernel #6) against cv2 and the JAX package.
 
 ``imagetransformations_tpu_torch/ops/hopper/blur.py`` ``blur_separable`` and
-``blur_to_sheared_rows`` are held against a numpy f32 transcription of the
-kernel's op order, the JAX functions (the Pallas kernel in interpret mode on
-the CPU) and the f64 oracle (``oracle/stencil.gaussian_blur``). On the CPU
-the port runs the kernel's plain version (``stencil.gaussian_blur_plain``);
+``blur_to_sheared_rows`` compute cv2's 8U GaussianBlur in integers. They are
+held against ``cv2.GaussianBlur`` itself and a numpy transcription of that
+integer rule at 0 LSB, and against the JAX functions (the Pallas kernel in
+interpret mode on the CPU) and the f64 oracle (``oracle/stencil.
+gaussian_blur``), which blur in f32 / f64, within a measured budget. On the
+CPU the port runs the kernel's plain version (``stencil.gaussian_blur_plain``);
 the CUDA kernel is compared with it on the card
 (tests/test_torch_cuda_kernels.py and chip_smoke.py).
 
-Budgets: 0 LSB against the numpy f32 transcription (both round every
-operation on its own) and against the JAX kernel on these inputs (measured:
-0 LSB at every case here, tools/port_parity_report.py); <= 1 LSB on <= 0.1%
-of values against the f64 oracle (measured: 1 LSB on 0.004% at 2x64x128 r 5,
-none elsewhere).
+Budgets: 0 LSB against cv2 and the numpy integer model; against the JAX
+kernel and the f64 oracle <= 1 LSB on <= 23% of values (measured at the
+shapes and radii here: 1 LSB on 9.8% at r 1.5 to 22.3% at r 0.5).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import cv2
 import jax.numpy as jnp
 
 from imagetransformations_tpu.oracle import stencil as ost
@@ -34,22 +35,29 @@ RADII = [0.5, 1.5, 5.0]
 
 
 def numpy_blur_f32(x: np.ndarray, radius: float) -> np.ndarray:
-    """The kernel's op order in numpy f32: reflect-101 pad, vertical taps
-    then horizontal, t = 0..K-1 as acc + x*tap, rint, clip."""
-    k = ost.cv2_gaussian_ksize(radius)
-    taps = ost.gaussian_taps(k, radius).astype(np.float32)
+    """The kernel's arithmetic in numpy (the name is historic: the blur was
+    f32 before it became cv2's integer rule): cv2's 8-fraction-bit taps,
+    reflect-101 pad, integer sums along H then W, ``(sum + 2^15) >> 16``."""
+    taps = tst.cv2_taps_q8(radius).astype(np.int64)
+    k = taps.size
     p = k // 2
     n, h, w, c = x.shape
-    xp = np.pad(x.astype(np.float32), [(0, 0), (p, p), (p, p), (0, 0)], mode="reflect")
-    v = None
-    for t in range(k):
-        term = xp[:, t : t + h] * taps[t]
-        v = term if v is None else v + term
-    o = None
-    for t in range(k):
-        term = v[:, :, t : t + w] * taps[t]
-        o = term if o is None else o + term
-    return np.clip(np.rint(o), 0, 255).astype(np.uint8)
+    xp = np.pad(x.astype(np.int64), [(0, 0), (p, p), (p, p), (0, 0)], mode="reflect")
+    v = sum(xp[:, t : t + h] * taps[t] for t in range(k))
+    o = sum(v[:, :, t : t + w] * taps[t] for t in range(k))
+    return ((o + 32768) >> 16).astype(np.uint8)
+
+
+def cv2_blur(x: np.ndarray, radius: float) -> np.ndarray:
+    """``cv2.GaussianBlur`` of each image of an NHWC u8 batch."""
+    k = tst.cv2_gaussian_ksize(radius)
+    out = [cv2.GaussianBlur(im, (k, k), radius) for im in x]
+    return np.stack([o.reshape(im.shape) for o, im in zip(out, x)])
+
+
+def _within_jax_budget(out, want):
+    lsb, frac = _err(out, want)
+    assert lsb <= 1 and frac <= 0.23, (lsb, frac)
 
 
 def _err(a, b):
@@ -63,6 +71,7 @@ def test_blur_separable_equals_numpy_f32(rng, shape, radius):
     x = rng.integers(0, 256, shape, dtype=np.uint8)
     out = tblur.blur_separable(torch.from_numpy(x), radius).numpy()
     np.testing.assert_array_equal(out, numpy_blur_f32(x, radius))
+    np.testing.assert_array_equal(out, cv2_blur(x, radius))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -70,11 +79,9 @@ def test_blur_separable_equals_numpy_f32(rng, shape, radius):
 def test_blur_separable_vs_jax_and_oracle(rng, shape, radius):
     x = rng.integers(0, 256, shape, dtype=np.uint8)
     out = tblur.blur_separable(torch.from_numpy(x), radius).numpy()
-    want = np.asarray(jblur.blur_separable(jnp.asarray(x), radius))
-    assert _err(out, want)[0] == 0
-    ref = np.stack([ost.gaussian_blur(im, radius) for im in x])
-    lsb, frac = _err(out, ref)
-    assert lsb <= 1 and frac <= 0.001, (lsb, frac)
+    np.testing.assert_array_equal(out, cv2_blur(x, radius))
+    _within_jax_budget(out, np.asarray(jblur.blur_separable(jnp.asarray(x), radius)))
+    _within_jax_budget(out, np.stack([ost.gaussian_blur(im, radius) for im in x]))
 
 
 def test_blur_zero_radius_is_identity(rng):
@@ -85,20 +92,29 @@ def test_blur_zero_radius_is_identity(rng):
 
 @pytest.mark.parametrize("shape", [(4, 5, 7, 3), (1, 1, 9, 3), (2, 3, 2, 1)])
 def test_tiny_images_match_jax_gaussian_blur(rng, shape):
-    """Images narrower than the window: reflect-101 reflects again."""
+    """Images narrower than the window: reflect-101 reflects again; cv2
+    at 0 LSB, the JAX blur within its budget."""
     x = rng.integers(0, 256, shape, dtype=np.uint8)
     out = tblur.blur_separable(torch.from_numpy(x), 1.5).numpy()
-    np.testing.assert_array_equal(out, np.asarray(jst.gaussian_blur(jnp.asarray(x), 1.5)))
+    np.testing.assert_array_equal(out, cv2_blur(x, 1.5))
     np.testing.assert_array_equal(out, numpy_blur_f32(x, 1.5))
+    _within_jax_budget(out, np.asarray(jst.gaussian_blur(jnp.asarray(x), 1.5)))
 
 
 @pytest.mark.parametrize("radius", [0.0, 1.5])
 def test_blur_to_sheared_rows_byte_equal_to_jax(rng, radius):
+    """The JAX entry's layout (shape, lanes, margins) byte for byte; the
+    blurred lanes are cv2's, within the JAX blur's budget."""
     x = rng.integers(0, 256, (2, 64, 128, 3), dtype=np.uint8)
     out = tblur.blur_to_sheared_rows(torch.from_numpy(x), radius, 12, 512, 9).numpy()
     want = np.asarray(jblur.blur_to_sheared_rows(jnp.asarray(x), radius, 12, 512, 9))
     assert out.shape == want.shape == (64, 2, 512)
-    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(out[:, :, :12], want[:, :, :12])
+    np.testing.assert_array_equal(out[:, :, 12 + 384 :], want[:, :, 12 + 384 :])
+    blurred = cv2_blur(x, radius) if radius else x
+    np.testing.assert_array_equal(out[:, :, 12 : 12 + 384],
+                                  blurred.transpose(1, 0, 2, 3).reshape(64, 2, 384))
+    _within_jax_budget(out, want)
 
 
 def test_blur_to_sheared_rows_any_layout(rng):

@@ -14,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+import cv2
 import jax.numpy as jnp
 
 from imagetransformations_tpu.oracle import fast_warp as ofw
 from imagetransformations_tpu.pipeline import chain as jchain
 
+from imagetransformations_tpu_torch.ops.stencil import cv2_gaussian_ksize
 from imagetransformations_tpu_torch.pipeline import chain as tchain
 
 # (ops as (name, params), stream-oracle segments as (radius, angle, gray))
@@ -97,12 +99,23 @@ def test_chain_accepts_tensor_and_empty_chain(rng):
 def test_unported_chains_raise(rng, ops, kwargs, item):
     """The chains the port refused until ROADMAP ``item`` was ported now
     run, and match the JAX chain: <= 1 LSB on <= 0.1% of values (the
-    affine warp's rotation matrix: f32 cos / sin an ulp apart between XLA
-    and PyTorch at 60 degrees; measured 0.05%)."""
+    affine warp's rotation matrix: the port's correctly rounded f32 cos /
+    sin against XLA's; measured 0.05% at 60 degrees). A strict chain's blur
+    is cv2's integer blur, where JAX blurs in f32: the rest of that chain is
+    held to the JAX chain on cv2's blur of the input at the same budget,
+    and the whole chain to JAX within <= 1 LSB on <= 10% (measured 8.4%)."""
     imgs = rng.integers(0, 256, (2, 40, 48, 3), dtype=np.uint8)
     out = tchain.build_chain_fn(_ops(tchain, ops), device="cpu", **kwargs)(imgs).numpy()
     want = np.asarray(jchain.build_chain_fn(_ops(jchain, ops), **kwargs)(jnp.asarray(imgs)))
     err = np.abs(out.astype(int) - want.astype(int))
+    if kwargs.get("strict_parity") and ops[0][0] == "blur":
+        assert err.max() <= 1 and (err > 0).mean() <= 0.10, (item, err.max(), (err > 0).mean())
+        r = ops[0][1]["radius"]
+        k = cv2_gaussian_ksize(r)
+        blurred = np.stack([cv2.GaussianBlur(im, (k, k), r) for im in imgs])
+        want = np.asarray(jchain.build_chain_fn(_ops(jchain, ops[1:]), **kwargs)(
+            jnp.asarray(blurred)))
+        err = np.abs(out.astype(int) - want.astype(int))
     assert err.max() <= 1 and (err > 0).mean() <= 0.001, (item, err.max(), (err > 0).mean())
 
 

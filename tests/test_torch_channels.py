@@ -10,14 +10,19 @@ into an FMA (<= 1 LSB on <= 1%; measured 0.40% at 2x20x28x2).
 both packages.
 
 ``blur_separable_batched`` (the per-image blur's kernel entry point) runs
-its plain version on the CPU; the zero-tap argument that lets the kernel
-sum only each image's nonzero taps is checked here on the plain passes.
+its plain version on the CPU, cv2's integer blur: 0 LSB against
+``cv2.GaussianBlur`` at 1, 3 and 4 channels; the JAX per-image blur (f32)
+within <= 2 LSB on <= 27% of values (measured: 2 LSB; 1 LSB or more on up
+to 25.6% of values, at 11x5x7x3). The zero-tap argument that lets the kernel sum only each
+image's taps between its outer nonzero ones is checked here on the plain
+passes.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import cv2
 import jax.numpy as jnp
 
 from imagetransformations_tpu import ops as jops
@@ -26,7 +31,6 @@ from imagetransformations_tpu.ops import stencil as jst
 from imagetransformations_tpu.pipeline import chain as jchain
 
 from imagetransformations_tpu_torch.core import grids as tgrids
-from imagetransformations_tpu_torch.core.image import as_float, finalize
 from imagetransformations_tpu_torch.ops import elementwise as ew
 from imagetransformations_tpu_torch.ops import histogram as hg
 from imagetransformations_tpu_torch.ops import stencil as st
@@ -125,8 +129,8 @@ def test_chain_on_one_channel_matches_jax(rng, name, strict):
                                    (11, 13, 20, 4)])
 def test_blur_separable_batched_on_the_cpu(rng, shape):
     """The CPU route is the plain version; it and ``apply_blur`` with an
-    array agree with the JAX per-image blur within the budget of
-    tests/test_torch_apply_all.py (<= 1 LSB on <= 0.1%)."""
+    array equal cv2 per image at 0 LSB, and the JAX per-image blur within
+    its budget (module docstring)."""
     imgs = rng.integers(0, 256, shape, dtype=np.uint8)
     radii = rng.permutation(np.asarray(BLUR_GRID, np.float32))
     x, r = torch.from_numpy(imgs), torch.from_numpy(radii)
@@ -134,9 +138,14 @@ def test_blur_separable_batched_on_the_cpu(rng, shape):
     assert torch.equal(out, st.blur_batched_plain(x, r))
     assert torch.equal(st.apply_blur(x, r), out)
     assert torch.equal(out[radii == 0], x[radii == 0])  # radius 0: a copy
+    for im, o, v in zip(imgs, out.numpy(), radii):
+        if v > 0:
+            k = st.cv2_gaussian_ksize(float(v))
+            ref = cv2.GaussianBlur(im, (k, k), float(v)).reshape(im.shape)
+            np.testing.assert_array_equal(o, ref)
     want = np.asarray(jst.apply_blur(jnp.asarray(imgs), jnp.asarray(radii)))
     err = np.abs(out.numpy().astype(int) - want.astype(int))
-    assert err.max() <= 1 and (err > 0).mean() <= 0.001, (err.max(), (err > 0).mean())
+    assert err.max() <= 2 and (err > 0).mean() <= 0.27, (err.max(), (err > 0).mean())
 
 
 def test_blur_separable_batched_checks_its_arguments(rng):
@@ -149,17 +158,19 @@ def test_blur_separable_batched_checks_its_arguments(rng):
 
 @pytest.mark.parametrize("radius", BLUR_GRID)
 def test_zero_padded_taps_equal_trimmed_taps(rng, radius):
-    """The kernel sums only each image's K nonzero taps of its 31-wide row.
-    The plain version with the whole zero-padded row gives the same bytes
-    as the same two passes with the trimmed row (the same f32 values): 0
-    LSB, on images narrower and wider than the window."""
+    """The kernel sums only the taps of each image's 31-wide integer row
+    between its outer nonzero ones (cv2's outer taps may round to 0, as at
+    r 5). The plain version with the whole zero-padded row gives the same
+    bytes as the same two passes with the trimmed row: 0 LSB, on images
+    narrower and wider than the window."""
     for shape in ((2, 40, 36, 3), (2, 5, 7, 3)):
         x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
         r = torch.full((shape[0],), radius, dtype=torch.float32)
-        row = st.blur_taps_batched(r)[0]
-        trimmed = row[row != 0]
-        assert trimmed.numel() == (1 if radius == 0 else st.cv2_gaussian_ksize(radius))
-        assert torch.equal(trimmed, row[15 - trimmed.numel() // 2: 16 + trimmed.numel() // 2])
-        want = finalize(st._conv1d(st._conv1d(as_float(x), trimmed, 1), trimmed, 2),
-                        torch.uint8, "rint")
-        assert torch.equal(st.blur_batched_plain(x, r), want)
+        row = st.blur_tap_rows(r, torch.device("cpu"))[0]
+        q = int(torch.nonzero(row)[0])
+        trimmed = row[q : row.numel() - q]
+        taps = st.cv2_taps_q8(radius)
+        e = int(np.nonzero(taps)[0][0])
+        assert torch.equal(trimmed, torch.from_numpy(taps[e : taps.size - e]))
+        assert int(trimmed.sum()) == 256
+        assert torch.equal(st.blur_batched_plain(x, r), st._blur_q8(x, trimmed))

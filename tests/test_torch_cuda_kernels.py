@@ -1,11 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 The blur-rotate kernels with one angle for the batch and one an image, the
-BICUBIC shear, the row-shift shear, the bilinear zoom, the PIL NEAREST
-rotation, the separable Gaussian blur, the row shifts of ``shear_rows`` and
+BICUBIC shear (also with the sweep's int32 canvas shifts), the row-shift
+shear, the bilinear zoom, the PIL NEAREST rotation, the separable Gaussian
+blur (cv2's integers, with host rows and the sweep's tap table), the row
+shifts of ``shear_rows`` and
 ``shear_rows_per_image``, the column pass and the 3-shear rotations built
 on them, the apply_all sweep (every flag combination) and ``build_chain_fn``
-(every route) on the card against their CPU routes.
+(every route) on the card against their CPU routes; and
+``pipeline.io.prefetch_to_device`` staging host batches onto the card.
 
 Every test here needs an NVIDIA GPU: it carries the ``cuda`` marker and
 skips without one (the decision is made inside the fixture). The file
@@ -13,7 +16,8 @@ imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
-Budget: 0 LSB. Both sides round every f32 operation separately.
+Budget: 0 LSB. Both sides round every f32 operation separately, or sum
+the same integers (the blur).
 """
 
 import numpy as np
@@ -146,6 +150,22 @@ def test_shear_bicubic_equals_plain(rng, cuda, shape):
     torch.cuda.synchronize()
     assert mk.LAUNCHES["shear_bicubic"] == before + 1
     assert torch.equal(out, rs.shear_bicubic_plain(x, f))
+    assert torch.equal(out.cpu(), rs.shear_bicubic_plain(x.cpu(), f.cpu()))
+
+
+@pytest.mark.parametrize("h", [10, 40, 100])
+def test_shear_bicubic_takes_int32_canvas_shifts(rng, cuda, h):
+    """The sweep's shifts (the grid's f64 table, gathered by index) and
+    shifts off by one: the kernel equals its plain version on the same
+    int32 shifts, and the table's shifts equal the CPU route's."""
+    x = torch.from_numpy(rng.integers(0, 256, (11, h, 37, 3), dtype=np.uint8)).to(cuda)
+    idx = torch.arange(11, device=cuda)
+    f = torch.from_numpy(np.float32(SHEAR_GRID)).to(cuda)
+    table = rs.shear_shift_table(tuple(SHEAR_GRID), h, cuda)[idx]
+    for shifts in (table, table + 1):
+        out = rs.shear_bicubic(x, f, shifts)
+        assert torch.equal(out, rs.shear_bicubic_plain(x, f, shifts))
+        assert torch.equal(out.cpu(), rs.shear_bicubic_plain(x.cpu(), f.cpu(), shifts.cpu()))
 
 
 # ---------------------------------------------------------------- row shift, zoom, rotation
@@ -313,15 +333,29 @@ def test_blur_separable_wide_window_and_sheared_rows(rng, cuda):
     assert torch.equal(out.cpu(), bl.blur_to_sheared_rows(x.cpu(), 1.5, 9, 200, 7))
 
 
+def test_blur_separable_row_with_zero_taps_takes_the_runtime_body(rng, cuda):
+    """cv2's r 5 row has 31 taps, its outer two 0: launched as one row of
+    31, the K = 31 instance finds K = 29 and runs the runtime-K body in the
+    shared memory sized for the K body; the same bytes as the plain
+    version."""
+    x = torch.from_numpy(rng.integers(0, 256, (2, 40, 45, 3), dtype=np.uint8)).to(cuda)
+    taps = torch.from_numpy(st.cv2_taps_q8(5.0)).to(cuda)
+    assert taps.shape == (31,) and taps[0] == 0
+    out = bl._launch(x, taps, 0, "blur_separable")
+    assert torch.equal(out, st.gaussian_blur_plain(x, 5.0))
+
+
 BLUR_GRID = [0.5 * i for i in range(11)]  # apply_all's radii 0:0.5:5
+SHEAR_GRID = [round(0.1 * i, 1) for i in range(11)]  # apply_all's shear factors 0:0.1:1
 
 
 @pytest.mark.parametrize("shape", [(12, 48, 40, 3), (12, 5, 7, 3), (12, 33, 70, 1),
                                    (12, 17, 300, 4), (12, 1, 9, 3)])
 def test_blur_separable_batched_equals_plain(rng, cuda, shape):
     """One radius an image, in a shuffled order: every grid radius (0: a
-    copy) and 6.0, whose 31-wide tap row is cut and renormalised as the
-    plain version cuts it. One launch a call."""
+    copy) and 6.0, whose 37 integer taps widen every row to 37 (the
+    runtime-K body). One launch a call; the grid table's rows, gathered by
+    index, give the same bytes."""
     x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(cuda)
     radii = torch.tensor(rng.permutation(BLUR_GRID + [6.0]), dtype=torch.float32, device=cuda)
     before = mk.LAUNCHES["blur_separable_batched"]
@@ -331,6 +365,12 @@ def test_blur_separable_batched_equals_plain(rng, cuda, shape):
     assert torch.equal(out, st.blur_batched_plain(x, radii))
     assert torch.equal(out[radii == 0], x[radii == 0])
     assert torch.equal(out.cpu(), bl.blur_separable_batched(x.cpu(), radii.cpu()))
+    grid = radii[radii <= 5.0]
+    idx = torch.round(grid * 2).to(torch.int64)
+    taps = batch._blur_table(tuple(BLUR_GRID), cuda)[idx]
+    xg = x[radii <= 5.0].contiguous()
+    assert torch.equal(bl.blur_separable_batched(xg, grid, taps=taps),
+                       st.blur_batched_plain(xg, grid))
 
 
 def test_apply_blur_with_an_array_runs_the_kernel(rng, cuda):
@@ -614,6 +654,30 @@ def test_apply_all_flags_on_the_card_bind_values_to_the_cpu_ops(rng, cuda, fast,
 
 
 def _apply_type(t, x, values, pil_parity=True):
-    if t in ("shear", "scale") and pil_parity:
+    if t == "shear" and pil_parity:
+        # the sweep's canvas shifts: the grid's Python floats, by drawn index
+        idx = torch.searchsorted(torch.tensor(SHEAR_GRID, dtype=torch.float32), values)
+        return batch._shear_pil(x, idx, values)
+    if t == "scale" and pil_parity:
         return batch._apply_per_value(x, t, values)
+    if t == "blur":
+        return st.apply_blur(x, values)
     return batch._BATCHED_OPS[t](x, values, None)
+
+
+# ---------------------------------------------------------------- prefetch
+
+
+def test_prefetch_to_device_stages_batches_in_order(rng, cuda):
+    """Pinned host buffers copied on a side stream: the batches arrive on
+    the card, in order, equal to the host batches, with at most
+    buffer_size staged ahead; the consumer can compute on each at once."""
+    from imagetransformations_tpu_torch.pipeline.io import batched, prefetch_to_device
+
+    host = rng.integers(0, 256, (10, 64, 48, 3), dtype=np.uint8)
+    got = []
+    for b in prefetch_to_device(batched(host, 3), buffer_size=2, device=cuda):
+        assert b.device.type == "cuda" and b.dtype == torch.uint8
+        got.append((b.to(torch.int32) + 1).cpu())
+    assert [g.shape[0] for g in got] == [3, 3, 3, 1]
+    np.testing.assert_array_equal(torch.cat(got).numpy(), host.astype(np.int32) + 1)

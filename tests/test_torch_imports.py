@@ -50,6 +50,9 @@ def test_port_files_found():
     assert "imagetransformations_tpu_torch/ops/histogram.py" in names
     assert "imagetransformations_tpu_torch/ops/elementwise.py" in names
     assert "imagetransformations_tpu_torch/ops/noise.py" in names
+    for module in ("pipeline/io.py", "pipeline/native_io.py", "pipeline/datasets.py",
+                   "workflows.py", "__main__.py", "utils/config.py"):
+        assert f"imagetransformations_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 
 
@@ -102,6 +105,18 @@ ops = [port.OpSpec(n, p) for n, p in (("blur", {"radius": 1.5}), ("rotation", {"
 g = torch.Generator().manual_seed(0)
 for strict in (False, True):
     assert port.build_chain_fn(ops, strict_parity=strict, device="cpu")(x, g).shape == x.shape
+import tempfile
+from imagetransformations_tpu_torch import __main__ as cli, workflows
+from imagetransformations_tpu_torch.pipeline import datasets, io, native_io
+from imagetransformations_tpu_torch.utils import config
+assert datasets.synthetic(n=2)[0].shape == (2, 32, 32, 3)
+assert config.FrameworkConfig.from_cli(["--device=cpu"]).device == "cpu"
+assert [b.shape[0] for b in io.prefetch_to_device(io.batched(x, 1), device="cpu")] == [1]
+with tempfile.TemporaryDirectory() as d:
+    assert workflows.transform_folder(d, d, device="cpu") == {}
+    assert io.load_folder_images(d)[1] == []
+    assert native_io.load_folder_images_native(d, (8, 8))[1] == []
+assert [o.name for o in cli.parse_ops("blur:1.5,grayscale")] == ["blur", "grayscale"]
 print("ok")
 """
     env = dict(os.environ)

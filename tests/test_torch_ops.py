@@ -6,14 +6,17 @@ alike. XLA-CPU contracts the blends of ``enhance_contrast``,
 ``enhance_color`` and ``sharpen`` (elementwise.py:97, stencil.py:163) into
 FMAs, which the port, like PIL, rounds as two operations: those are held to
 <= 1 LSB on <= 1% of values against JAX and to 0 LSB against a numpy f32
-transcription. Float inputs give float outputs, held to 2e-3 on the [0, 255]
-scale (FMA and accumulation order).
+transcription. u8 ``histogram_equalization`` computes cv2's integer YUV
+and LUT: 0 LSB against cv2, and against JAX's f32 conversion a measured
+budget (``JAX_HEQ_BUDGET``). Float inputs give float outputs, held to 2e-3
+on the [0, 255] scale (FMA and accumulation order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import cv2
 import jax.numpy as jnp
 
 from imagetransformations_tpu import ops as jops
@@ -43,7 +46,8 @@ def imgs(rng):
     return rng.integers(0, 256, (2, 40, 48, 3), dtype=np.uint8)
 
 
-# (port fn, JAX fn, budget): "exact" 0 LSB, "fma" <= 1 LSB on <= 1%
+# (port fn, JAX fn, budget): "exact" 0 LSB, "fma" <= 1 LSB on <= 1%, "cv2"
+# 0 LSB against cv2 itself (CV2_REFS) and JAX_HEQ_BUDGET against JAX
 OPS = {
     "grayscale": (ew.grayscale, jops.grayscale, "exact"),
     "grayscale keep_rgb=False": (lambda x: ew.grayscale(x, keep_rgb=False),
@@ -60,7 +64,7 @@ OPS = {
     "motion_blur 5": (lambda x: st.motion_blur(x, 5), lambda x: jst.motion_blur(x, 5), "exact"),
     "motion_blur 4": (lambda x: st.motion_blur(x, 4), lambda x: jst.motion_blur(x, 4), "exact"),
     "histogram_equalization": (hg.histogram_equalization, jhg.histogram_equalization,
-                               "exact"),
+                               "cv2"),
     "apply_translation 5,-3": (lambda x: wp.apply_translation(x, 5, -3),
                                lambda x: jwp.apply_translation(x, 5, -3), "exact"),
     "apply_translation -2.7": (lambda x: wp.apply_translation(x, -2.7),
@@ -77,9 +81,20 @@ OPS = {
 }
 
 
+#: cv2's own op, per image, for the ops whose u8 path computes cv2's
+#: integers where the JAX package computes in f32
+CV2_REFS = {"histogram_equalization": oe.histogram_equalization_yuv}
+#: histogram_equalization against JAX (f32 YUV: a flipped Y level moves the
+#: CDF): max LSB and share of values off; measured on the inputs here: 29
+#: LSB on 28.9% (2x40x48x3), 22 LSB on 28.3% (40x48x3)
+JAX_HEQ_BUDGET = (32, 0.35)
+
+
 def _check(out, want, budget):
     lsb, frac = _err(out, want)
-    if budget == "exact":
+    if budget == "cv2":
+        assert lsb <= JAX_HEQ_BUDGET[0] and frac <= JAX_HEQ_BUDGET[1], (lsb, frac)
+    elif budget == "exact":
         assert lsb == 0, (lsb, frac)
     else:
         assert lsb <= 1 and frac <= 0.01, (lsb, frac)
@@ -90,6 +105,8 @@ def test_op_matches_jax_u8(imgs, name):
     port, jax_fn, budget = OPS[name]
     out = port(torch.from_numpy(imgs)).numpy()
     _check(out, np.asarray(jax_fn(jnp.asarray(imgs))), budget)
+    if budget == "cv2":
+        np.testing.assert_array_equal(out, np.stack([CV2_REFS[name](im) for im in imgs]))
 
 
 @pytest.mark.parametrize("name", sorted(OPS))
@@ -97,6 +114,8 @@ def test_op_matches_jax_hwc(imgs, name):
     port, jax_fn, budget = OPS[name]
     out = port(torch.from_numpy(imgs[1])).numpy()
     _check(out, np.asarray(jax_fn(jnp.asarray(imgs[1]))), budget)
+    if budget == "cv2":
+        np.testing.assert_array_equal(out, CV2_REFS[name](imgs[1]))
 
 
 @pytest.mark.parametrize("name", sorted(OPS))
@@ -151,18 +170,25 @@ def test_histogram_pieces_match_jax(imgs):
                                   np.asarray(jhg.equalize_channel(jnp.asarray(chan))))
     np.testing.assert_array_equal(hg.equalize_channel(torch.from_numpy(chan[0])).numpy(),
                                   np.asarray(jhg.equalize_channel(jnp.asarray(chan[0]))))
-    flat = np.zeros((1, 8, 8, 3), np.uint8) + 17  # one bin: the denominator clamps to 1
+    # cv2's own LUT, which the u8 histogram_equalization takes
+    np.testing.assert_array_equal(hg.equalize_channel_cv2(torch.from_numpy(chan)).numpy(),
+                                  np.stack([cv2.equalizeHist(c) for c in chan]))
+    # one level: JAX's denominator clamps to 1 and maps it to 0; cv2 keeps it
+    flat = np.zeros((1, 8, 8, 3), np.uint8) + 17
     np.testing.assert_array_equal(hg.histogram_equalization(torch.from_numpy(flat)).numpy(),
-                                  np.asarray(jhg.histogram_equalization(jnp.asarray(flat))))
+                                  oe.histogram_equalization_yuv(flat[0])[None])
+    np.testing.assert_array_equal(
+        hg.histogram_equalization(torch.from_numpy(flat).float()).numpy(),
+        np.asarray(jhg.histogram_equalization(jnp.asarray(flat).astype(jnp.float32))))
 
 
 def test_histogram_equalization_near_cv2_oracle(imgs):
-    """The f32 YUV conversion stands in for cv2's integer one: a mean
-    difference under 3 LSB, the budget of the JAX package's own test
-    (tests/test_noise_histogram.py)."""
+    """The u8 path is cv2's integer YUV and LUT: 0 LSB against the cv2
+    oracle (the JAX package's own test allows a mean difference under 3 LSB
+    for its f32 conversion, tests/test_noise_histogram.py)."""
     out = hg.histogram_equalization(torch.from_numpy(imgs)).numpy()
     ref = np.stack([oe.histogram_equalization_yuv(im) for im in imgs])
-    assert np.abs(out.astype(int) - ref.astype(int)).mean() < 3.0
+    np.testing.assert_array_equal(out, ref)
 
 
 def test_translation_with_per_image_shifts_matches_jax(imgs):

@@ -10,14 +10,16 @@ the kernel's plain version; the CUDA kernel is compared with it on the card
 (tests/test_torch_cuda_kernels.py and chip_smoke.py).
 
 Budgets: 0 LSB against JAX and ``fast_warp`` (both sides round every f32
-operation on its own here); ``blur_rotate_fused`` <= 1 LSB against the f64
-blur oracle, as tests/test_pallas_kernels.py holds the JAX kernel.
+operation on its own here); ``blur_rotate_fused`` blurs as cv2 does (0 LSB
+against cv2.GaussianBlur, then ``fast_warp``), and the JAX function, whose
+blur is f32, within a measured budget.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import cv2
 import jax.numpy as jnp
 
 from imagetransformations_tpu.oracle import elementwise as oe
@@ -129,13 +131,19 @@ def test_rotate_3shear_equals_strict_radius0_megakernel(batch, angle, gray):
 
 
 def test_blur_rotate_fused_vs_jax_and_oracle(rng):
+    """cv2's blur (the port's ``blur_separable``), then the 3-shear rotation
+    and PIL gray: 0 LSB against cv2.GaussianBlur -> fast_warp.rotate_3shear
+    -> grayscale_rgb; the JAX function, whose blur is f32, within <= 2 LSB
+    on <= 10% of values (measured: 1 LSB on 7.2%)."""
     img = rng.integers(0, 256, (2, 64, 128, 3), dtype=np.uint8)
     out = tshear.blur_rotate_fused(_t(img), 1.5, 15.0, grayscale_out=True).numpy()
     want = np.asarray(jshear.blur_rotate_fused(jnp.asarray(img), 1.5, 15.0, grayscale_out=True))
-    np.testing.assert_array_equal(out, want)
-    blurred = np.stack([ost.gaussian_blur(im, 1.5) for im in img])
+    err = np.abs(out.astype(int) - want.astype(int))
+    assert err.max() <= 2 and (err > 0).mean() <= 0.10, (err.max(), (err > 0).mean())
+    k = ost.cv2_gaussian_ksize(1.5)
+    blurred = np.stack([cv2.GaussianBlur(im, (k, k), 1.5) for im in img])
     ref = np.stack([oe.grayscale_rgb(im) for im in ofw.rotate_3shear(blurred, 15.0)])
-    assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
+    np.testing.assert_array_equal(out, ref)
     out0 = tshear.blur_rotate_fused(_t(img), 0.0, -10.0).numpy()  # radius 0 skips the blur
     np.testing.assert_array_equal(out0, ofw.rotate_3shear(img, -10.0))
 

@@ -151,15 +151,16 @@ def main() -> int:
                                 for i, a in enumerate(res["rotation"][0].tolist())),
          pixel_frac_max=max(pixels(got[i], want[i])["pixel_frac"] for i in range(len(imgs))))
 
-    # the per-grid-value sweep
+    # the sweep's shear by drawn index against JAX's per-grid-value sweep
     rng = np.random.default_rng(1234)
     imgs = rng.integers(0, 256, (6, 24, 20, 3), dtype=np.uint8)
     vals = np.asarray([0.3, 0.0, 0.7, 0.3, 0.7, 0.0], np.float32)
-    out = tbatch._value_sweep_per_value(torch.from_numpy(imgs), torch.from_numpy(vals), "shear",
-                                        (0.0, 0.3, 0.7))
+    idx = torch.tensor([3, 0, 7, 3, 7, 0])  # positions in the shear grid 0:0.1:1
+    out = tbatch._shear_pil(torch.from_numpy(imgs), idx, torch.from_numpy(vals))
     want = jbatch._value_sweep_per_value(jnp.asarray(imgs), jnp.asarray(vals), "shear",
                                          (0.0, 0.3, 0.7))
-    emit("_value_sweep_per_value shear", imgs.shape, "jax", **values(out.numpy(), want))
+    emit("_shear_pil / jax _value_sweep_per_value shear", imgs.shape, "jax",
+         **values(out.numpy(), want))
     imgs = np.random.default_rng(1234).integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
     vals = np.asarray([60.0, -22.5, 15.0, 0.0, 60.0, -22.5], np.float32)
     grid = (-22.5, 0.0, 15.0, 60.0)

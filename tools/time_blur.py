@@ -9,10 +9,11 @@ kernels): ``blur_separable`` at 32x512x512x3 with r 1.5 and 5 and at
 4096x32x32x3 with r 1.5; ``blur_separable_batched`` (apply_all's per-image
 blur) at both shapes with the blur grid's radii 0:0.5:5 cycled over the
 batch, and with r 1.5 for every image (the per-image kernel against the
-one-radius one): ``ms`` the kernel on tap rows made before the timing,
-``entry_ms`` the entry point with its taps (PyTorch ops on the host's
-clock, so host-bound). One JSON line a row, the card's name and power limit
-first. For A/B runs, run the script of another tree (a variant of the
+one-radius one): ``ms`` the kernel on tap rows made before the timing (CUDA
+events), ``device_ms`` its kernel alone (``chip_smoke.device_ms``:
+torch.profiler), ``entry_ms`` the entry point with its taps (made on the
+host from the radii, so host-bound; the sweep gathers them from a table
+instead). One JSON line a row, the card's name and power limit first. For A/B runs, run the script of another tree (a variant of the
 kernel) in the same call, in turns. Needs a CUDA device;
 exits 1 without one. Imports nothing of JAX.
 """
@@ -37,7 +38,7 @@ def rows(torch, cs, st, bl):
         if name == "blur_separable_batched":
             grid = cs.BLUR_GRID if radius is None else [1.5]
             r = torch.from_numpy(cs.cycled(grid, shape[0])).to(x.device)
-            taps = st.blur_taps_batched(r)
+            taps = st.blur_tap_rows(r, x.device)
             run = lambda: bl._launch(x, taps, taps.shape[1], name)
             plain = lambda: st.blur_batched_plain(x, r)
             row["entry_ms"] = cs.time_ms(torch, lambda: bl.blur_separable_batched(x, r), 20)
@@ -49,6 +50,7 @@ def rows(torch, cs, st, bl):
         if not torch.equal(got, plain()):
             raise RuntimeError(f"{name} differs from its plain version at {shape}")
         row["ms"] = cs.time_ms(torch, run, 20)
+        row["device_ms"] = cs.device_ms(torch, run, 20)
         print(json.dumps(row), flush=True)
 
 

@@ -11,7 +11,9 @@ cycled over the batch (the fast sweep's scale) and at 0.5 and 4.0 for
 every image (the ends of random_zoom's kernel range). ``ms`` is one
 wrapper call (CUDA events around 20 calls after two warm-up calls, host
 overhead included), ``device_ms`` the device time of its kernel alone
-(``chip_smoke.device_ms``: torch.profiler, 20 calls). Each row carries its bound (``bound_ms``, from ``chip_smoke.py``).
+(``chip_smoke.device_ms``: torch.profiler, 20 calls); the shear's int32
+canvas shifts are made before the timing, as the sweep gathers them. Each
+row carries its bound (``bound_ms``, from ``chip_smoke.py``).
 One JSON line a row, the card's name and power limit first.
 
 ``--tree DIR`` imports the port's package from DIR instead (another
@@ -44,8 +46,11 @@ def rows(torch, cs, rs, shape):
                       torch.full((n,), f, dtype=torch.float32, device=dev)))
     for name, mode, f in cases:
         if name == "shear_bicubic":
-            run = lambda: rs.shear_bicubic(x, f)
-            want = rs.shear_bicubic_plain(x, f)
+            # the int32 canvas shifts (a kernel argument; older trees take none),
+            # made outside the timing
+            m = (rs.canvas_shifts(f, h),) if hasattr(rs, "canvas_shifts") else ()
+            run = lambda: rs.shear_bicubic(x, f, *m)
+            want = rs.shear_bicubic_plain(x, f, *m)
             bnd = cs.bound_shear_bicubic(torch, x, f)
         else:
             run = lambda: rs.zoom_bilinear(x, f)
