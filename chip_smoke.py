@@ -39,6 +39,12 @@ the card to the CPU's bit for bit, and phase ``folder`` runs the
 reference's main script: folders of JPEGs (32 at 512x512, 512 at 32x32)
 through ``python -m imagetransformations_tpu_torch transform`` and
 ``chain``, with stage seconds, images a second and the card's busy share.
+After the kernels are timed, phase ``corrupt`` runs every corruption of
+``evalx.harness`` at severities 1-5 at 10000x32x32 (the CIFAR-10 test set)
+and 64x224x224 (ImageNet-C) on the card, each held to the CPU path on its
+first images within 1 LSB (numpy draws; ``rotation`` on the NEAREST
+rotation kernel), and the folder phase's ``corrupt`` command takes 256
+PNGs of 32x32 through the store's 19 corruptions at severities 1-5.
 Prints one JSON line per phase; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
@@ -79,6 +85,11 @@ STRICT_ANGLE = 135.0  # a strict rotation beyond 45 degrees: Pillow's gather (ke
 ROTATION_EDGES = [60.0, -60.0, 90.0, 135.0, 180.0]  # #12's parity beyond the grid
 FLOAT_PATH_SHAPE = (1, 3, 40000)  # (n, h, w): Pillow's f64 route (every corner past 32768)
 PER_IMAGE_PAD = 20  # shear_rows_per_image's pad_px on the main path (shifts to +-30)
+# phase corrupt: the CIFAR-10 test set's shape and ImageNet-C's, (n, h, w), and
+# how many of their images the CPU path recomputes
+CORRUPT_SHAPES = ((10000, 32, 32), (64, 224, 224))
+CORRUPT_CPU_IMAGES = {32: 256, 224: 8}
+FOLDER_CORRUPT_IMAGES = 256  # the folder phase's corrupt run: PNGs of 32x32
 # apply_all's flags by main-path run kind
 SWEEP_FLAGS = {
     "apply_all": {},
@@ -850,14 +861,10 @@ def folder_phase(torch, mk) -> list:
     computation redone here (the chain; the sweep with the same seed).
     Without a JPEG codec (the native build and PIL both missing) the phase
     prints what is missing and is not measured."""
-    import contextlib
-    import io as _io
-    import runpy
     import shutil
     import tempfile
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from imagetransformations_tpu_torch import OpSpec, apply_all_transformations
     from imagetransformations_tpu_torch.pipeline import native_io
@@ -893,32 +900,7 @@ def folder_phase(torch, mk) -> list:
                 if cmd == "chain":
                     argv.append(f"--ops={chain_spec}")
 
-                def run():
-                    buf, saved = _io.StringIO(), sys.argv
-                    sys.argv = ["imagetransformations_tpu_torch", *argv]
-                    try:
-                        with contextlib.redirect_stdout(buf):
-                            runpy.run_module("imagetransformations_tpu_torch", run_name="__main__",
-                                             alter_sys=True)
-                    finally:
-                        sys.argv = saved
-                    return json.loads(buf.getvalue().strip().splitlines()[-1])
-
-                run()  # warm-up: caches, first launches
-                torch.cuda.synchronize()
-                for k in mk.LAUNCHES:
-                    mk.LAUNCHES[k] = 0
-                t0 = time.perf_counter()
-                stats = run()
-                wall = time.perf_counter() - t0
-                launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    run()
-                device_us = {"kernels": 0.0, "copies": 0.0}
-                for e in prof.key_averages():
-                    if str(getattr(e, "device_type", "")).endswith("CUDA"):
-                        kind = "copies" if e.key.startswith(("Memcpy", "Memset")) else "kernels"
-                        device_us[kind] += getattr(e, "self_device_time_total", 0) or 0
+                stats, wall, launches, device_us = measure_cli(torch, mk, argv)
                 want = (("rgb_blur_rotate_traced", "shear_bicubic", "blur_separable_batched")
                         if cmd == "transform" else
                         ("luma_blur_rotate" if side >= 128 else "luma_blur_rotate_packed",))
@@ -967,22 +949,202 @@ def folder_phase(torch, mk) -> list:
                     fail(f"folder {cmd} {side}: {mismatched} files differ from the recomputation")
                 row = {"phase": "folder", "command": cmd, "images": n,
                        "shape": [side, side, 3], "codec": "native" if codecs["native"] else "PIL",
-                       "wall_s": wall, "stage_s": {k: stats[k] for k in (
-                           "decode_s", "h2d_s", "compute_s", "d2h_s", "encode_s")},
-                       "compute_event_ms": stats.get("compute_event_ms"),
-                       "images_per_s": n / wall,
-                       "device_kernel_ms": device_us["kernels"] / 1e3,
-                       "device_copy_ms": device_us["copies"] / 1e3,
-                       "device_busy_share": (device_us["kernels"] + device_us["copies"]) / 1e6
-                       / wall if device_us["kernels"] > 0 else None,
-                       "kernel_busy_share": device_us["kernels"] / 1e6 / wall
-                       if device_us["kernels"] > 0 else None,
+                       **folder_columns(stats, wall, n, device_us),
                        "files": len(written), "files_checked": min(8, n) * len(arrs),
                        "launches": launches, "codecs": codecs}
                 emit(row)
                 rows.append(row)
                 shutil.rmtree(out_dir)
     return rows
+
+
+def run_cli(argv) -> dict:
+    """``python -m imagetransformations_tpu_torch *argv`` in this process
+    (``runpy``); returns the ``--stats`` line it prints last."""
+    import contextlib
+    import io as _io
+    import runpy
+
+    buf, saved = _io.StringIO(), sys.argv
+    sys.argv = ["imagetransformations_tpu_torch", *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module("imagetransformations_tpu_torch", run_name="__main__",
+                             alter_sys=True)
+    finally:
+        sys.argv = saved
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def measure_cli(torch, mk, argv):
+    """A CLI command three times: a warm-up; the measured run (counters
+    reset just before, read just after, wall seconds); a run under
+    torch.profiler for the device's kernel and copy time. Returns (stats,
+    wall_s, launches, device_us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run_cli(argv)  # warm-up: caches, first launches
+    torch.cuda.synchronize()
+    for k in mk.LAUNCHES:
+        mk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    stats = run_cli(argv)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_cli(argv)
+    device_us = {"kernels": 0.0, "copies": 0.0}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            kind = "copies" if e.key.startswith(("Memcpy", "Memset")) else "kernels"
+            device_us[kind] += getattr(e, "self_device_time_total", 0) or 0
+    return stats, wall, launches, device_us
+
+
+def folder_columns(stats: dict, wall: float, n: int, device_us: dict) -> dict:
+    """The columns every folder row reports: wall and stage seconds, images
+    a second end to end, the device's kernel and copy time and busy shares."""
+    return {"wall_s": wall, "stage_s": {k: stats[k] for k in (
+                "decode_s", "h2d_s", "compute_s", "d2h_s", "encode_s")},
+            "compute_event_ms": stats.get("compute_event_ms"),
+            "images_per_s": n / wall,
+            "device_kernel_ms": device_us["kernels"] / 1e3,
+            "device_copy_ms": device_us["copies"] / 1e3,
+            "device_busy_share": (device_us["kernels"] + device_us["copies"]) / 1e6
+            / wall if device_us["kernels"] > 0 else None,
+            "kernel_busy_share": device_us["kernels"] / 1e6 / wall
+            if device_us["kernels"] > 0 else None}
+
+
+def folder_corrupt_run(torch, mk) -> dict:
+    """The folder phase's ``corrupt`` command on the card: a folder of PNGs
+    (256 at 32x32x3, written from a seed) through the store's 19
+    corruptions at severities 1-5 (``corrupt --stats --device=cuda``),
+    measured as the other folder runs. ``rotation`` is not in the store, so
+    no kernel of the port need launch; the files must equal each cell
+    recomputed here with its generator (``workflows.corruption_generator``),
+    on 8 images a cell. The PNGs need PIL: without it the run is not
+    measured."""
+    import tempfile
+
+    import numpy as np
+
+    from imagetransformations_tpu_torch.evalx.harness import corrupt
+    from imagetransformations_tpu_torch.workflows import STORE_CORRUPTIONS, corruption_generator
+
+    try:
+        from PIL import Image
+    except ImportError:
+        print("chip_smoke: folder corrupt run not measured: its PNGs need PIL", flush=True)
+        return {"phase": "folder", "command": "corrupt", "measured": False}
+    n, side = FOLDER_CORRUPT_IMAGES, 32
+    imgs = np.random.default_rng(SEED + 77).integers(0, 256, (n, side, side, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corrupt_") as tmp:
+        src, out_dir = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(src)
+        for i, im in enumerate(imgs):
+            Image.fromarray(im).save(os.path.join(src, f"im{i:04d}.png"))
+        argv = ["corrupt", src, out_dir, f"--size={side}x{side}", "--stats", "--device=cuda"]
+        stats, wall, launches, device_us = measure_cli(torch, mk, argv)
+        if stats["images"] != n:
+            fail(f"folder corrupt: the command read {stats['images']} of {n} images")
+        written = sorted(os.listdir(out_dir))
+        expect = sorted(f"im{i:04d}_{name}_severity{sev}.png" for i in range(n)
+                        for name in STORE_CORRUPTIONS for sev in range(1, 6))
+        if written != expect:
+            fail(f"folder corrupt: {len(written)} files, expected {len(expect)} named by cell")
+        xd = torch.from_numpy(imgs).cuda()
+        mismatched = 0
+        for name in STORE_CORRUPTIONS:
+            for sev in range(1, 6):
+                want = corrupt(xd, name, sev, corruption_generator(0, name, sev, xd.device))
+                want = want[:8].cpu().numpy()
+                for i in range(8):
+                    fn = os.path.join(out_dir, f"im{i:04d}_{name}_severity{sev}.png")
+                    mismatched += not np.array_equal(np.asarray(Image.open(fn)), want[i])
+        if mismatched:
+            fail(f"folder corrupt: {mismatched} files differ from the recomputation")
+    return {"phase": "folder", "command": "corrupt", "images": n, "shape": [side, side, 3],
+            "codec": "PIL (PNG)", "cells": len(STORE_CORRUPTIONS) * 5,
+            **folder_columns(stats, wall, n, device_us),
+            "outputs_per_s": len(written) / wall, "files": len(written),
+            "files_checked": 8 * len(STORE_CORRUPTIONS) * 5, "launches": launches}
+
+
+def corrupt_phase(torch, mk) -> dict:
+    """Every corruption of ``evalx.harness`` (the store's 19, rotation and
+    translation) at severities 1-5 through ``harness.corrupt`` on the card,
+    at 10000x32x32x3 (the CIFAR-10 test set) and 64x224x224x3
+    (ImageNet-C), random u8 from a seed, with explicit draws made by numpy
+    (``harness.numpy_draws``) and copied to the card outside the timing.
+    The CPU path recomputes the first 256 (32x32) or 8 (224x224) images of
+    each cell with the same draws: every generator is per-image, so those
+    rows must agree within 1 LSB. ``rotation`` must launch the NEAREST
+    rotation kernel (#12); the counters are reset just before each card run
+    and read just after. Per cell: ms a call (CUDA events), max LSB against
+    the CPU and the share of values that differ; per shape the store's
+    total ms (95 cells) and the CPU path's seconds. Returns the phase's
+    launches by kernel."""
+    import numpy as np
+
+    from imagetransformations_tpu_torch.evalx import harness as hs
+    from imagetransformations_tpu_torch.workflows import STORE_CORRUPTIONS
+
+    names = [*hs.CORRUPTIONS, *hs.EXTRA_CORRUPTIONS]
+    launches = {k: 0 for k in mk.LAUNCHES}
+    for n, h, w in CORRUPT_SHAPES:
+        imgs = np.random.default_rng(SEED + 13 + h).integers(0, 256, (n, h, w, 3),
+                                                              dtype=np.uint8)
+        m = CORRUPT_CPU_IMAGES[h]
+        x = torch.from_numpy(imgs).cuda()
+        xc = torch.from_numpy(imgs[:m].copy())
+        cells, cpu_s, t_phase = [], 0.0, time.perf_counter()
+        for name in names:
+            for sev in range(1, 6):
+                rng = np.random.default_rng([SEED, h, names.index(name), sev])
+                draws = hs.numpy_draws(imgs, name, sev, rng)
+                dd = {k: torch.from_numpy(v).cuda() for k, v in draws.items()}
+                # the first m images' draws: glass_blur's offsets lead with the iterations
+                dc = {k: torch.from_numpy(np.ascontiguousarray(v[:, :m] if k == "offsets"
+                                                               else v[:m]))
+                      for k, v in draws.items()}
+                torch.cuda.synchronize()
+                for k in mk.LAUNCHES:
+                    mk.LAUNCHES[k] = 0
+                out = hs.corrupt(x, name, sev, None, **dd)
+                torch.cuda.synchronize()
+                run_launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+                for k, v in run_launches.items():
+                    launches[k] += v
+                if name == "rotation" and not run_launches.get("pil_rotate_nearest"):
+                    fail(f"corrupt rotation {sev} at {h}x{w}: kernel #12 was not launched: "
+                         f"{run_launches}")
+                if out.shape != x.shape or out.dtype != torch.uint8:
+                    fail(f"corrupt {name} {sev}: bad output {tuple(out.shape)} {out.dtype}")
+                t0 = time.perf_counter()
+                want = hs.corrupt(xc, name, sev, None, **dc)
+                cpu_s += time.perf_counter() - t0
+                d = (out[:m].cpu().to(torch.int16) - want.to(torch.int16)).abs()
+                lsb, share = int(d.max()), float((d > 0).double().mean())
+                if lsb > 1:
+                    fail(f"corrupt {name} {sev} at {h}x{w}: the card differs from the CPU by "
+                         f"{lsb} LSB on {share:.2%} of values")
+                ms = time_ms(torch, lambda: hs.corrupt(x, name, sev, None, **dd), 3)
+                cells.append({"name": name, "severity": sev, "ms": ms, "max_lsb_vs_cpu": lsb,
+                              "share_differing": share, "launches": run_launches})
+                del out, dd, dc, draws
+        store = [c for c in cells if c["name"] in STORE_CORRUPTIONS]
+        slowest = sorted(store, key=lambda c: -c["ms"])[:5]
+        emit({"phase": "corrupt", "shape": [n, h, w, 3], "cells": cells,
+              "store_ms": sum(c["ms"] for c in store), "store_cells": len(store),
+              "all_ms": sum(c["ms"] for c in cells),
+              "slowest_store_cells": [[c["name"], c["severity"], c["ms"]] for c in slowest],
+              "max_lsb_vs_cpu": max(c["max_lsb_vs_cpu"] for c in cells),
+              "cells_differing": sum(c["max_lsb_vs_cpu"] > 0 for c in cells),
+              "cpu_images": m, "cpu_s": cpu_s, "phase_s": time.perf_counter() - t_phase})
+        del x, xc, imgs
+        torch.cuda.empty_cache()
+    return launches
 
 
 def mode_row(torch, mode, shape, run, want, b, launches) -> dict:
@@ -1451,7 +1613,7 @@ def main() -> int:
     runs = main_path_runs()
     inputs = {label: images(torch, shape, seed) for label, _, shape, seed, *_ in runs}
     torch.cuda.synchronize()
-    # launches of each kernel over the folder commands and the runs below
+    # launches of each kernel over the folder commands, phase corrupt and the runs below
     launches = {k: folder_launches.get(k, 0) for k in mk.LAUNCHES}
     results = []
     drawn_radii = None  # the blur radii the default sweep drew at 32x512x512
@@ -1707,6 +1869,17 @@ def main() -> int:
             "shape": [*shape, 3], "mode": mode, **extra,
         })
         del x, run, plain
+
+    # ---- the corruption generators: phase corrupt and the folder command --
+    # after the kernels' device_ms: a profiled corrupt folder run (tens of
+    # thousands of small launches) left torch.profiler recording about half
+    # the device time of later sessions in one process. Their launches join
+    # the kernels line's counts.
+    for k, v in corrupt_phase(torch, mk).items():
+        for e in entries:
+            if e["name"] == k:
+                e["launches"] += v
+    emit(folder_corrupt_run(torch, mk))
 
     # ---- geometry: the luma kernel's band rows and images a block ----------
     # ms of each geometry at 4096x32x32 and 32x512x512 (byte-equal to the

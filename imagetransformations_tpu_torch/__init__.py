@@ -11,19 +11,30 @@ the warp ops ``apply_rotation``, ``random_zoom``, ``apply_shear`` and
 ``affine_warp``, and every Pallas entry point of the JAX package
 (``ops.hopper``: ``blur_separable``, ``shear_rows``,
 ``shear_rows_per_image``, ``rotate_3shear``, ``blur_rotate_fused``, ...),
-plus ``blur_separable_batched``, the per-image blur of the sweep.
+plus ``blur_separable_batched``, the per-image blur of the sweep; the
+JAX package's whole per-op API (``ops`` exports its 31 names, among them
+``center_crop``, ``perspective_warp``, ``apply_perspective``,
+``perspective_coeffs``, ``sobel_edges``, ``pil_box_blur``,
+``pil_gaussian_blur``, ``gaussian_noise_01`` and ``image_entropy``; and
+``ops.warp.pil_resize``), ``ops.composite`` (background change, random crop, the
+3-D-transform aliases), the 19 CIFAR-10-C generators of
+``ops.corruptions`` with their dispatch ``evalx.harness.corrupt``, and the
+``transform`` / ``chain`` / ``corrupt`` CLI.
 Hand-written CUDA kernels in ``csrc/``, one or more for each of the JAX
 package's twelve Pallas kernels, carry them on the card; they are built with
 nvcc at first use.
 
 - ``core``     : NHWC uint8 batch helpers, u8 quantizations, parameter grids.
-- ``ops``      : elementwise, stencil, noise, histogram, affine warps and
-                 LANCZOS scale in plain PyTorch; ``ops.hopper`` holds the
-                 kernel wrappers, their plain PyTorch versions and the build.
-- ``pipeline`` : declarative op-chains and the 8-type batch sweep.
+- ``ops``      : elementwise, stencil, noise, histogram, affine warps,
+                 PIL resize and LANCZOS scale, composites and the
+                 corruption generators in plain PyTorch; ``ops.hopper``
+                 holds the kernel wrappers, their plain PyTorch versions and
+                 the build.
+- ``pipeline`` : declarative op-chains, the 8-type batch sweep, folder I/O.
+- ``evalx``    : the corruption dispatch (``harness.corrupt``).
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 from imagetransformations_tpu_torch.core.grids import PARAM_GRIDS  # noqa: F401
 from imagetransformations_tpu_torch.ops.hopper import (  # noqa: F401

@@ -11,6 +11,11 @@ hardcoded constants (SURVEY.md §5 'Config / flag system: none'). Commands:
   [--strict-parity] [--fast-compile] [--seed=N] [--device=cuda|cpu]
   [--stats]`` — apply a declarative op-chain (fused kernels where it
   matches) to a folder.
+- ``corrupt IN_DIR OUT_DIR [--corruptions=a,b] [--severities=1,3,5]
+  [--size=WxH] [--seed=N] [--device=cuda|cpu] [--stats]`` — a
+  CIFAR-10-C-style store from a folder: one PNG per (input, corruption,
+  severity), ``{stem}_{name}_severity{sev}.png``; by default the store's 19
+  corruptions at severities 1-5.
 
 Every command runs on the card (``--device=cuda``, the default; it fails
 without one) unless ``--device=cpu`` asks for the plain PyTorch versions.
@@ -18,10 +23,12 @@ With ``--size`` the images are decoded and encoded by the multithreaded C++
 codec (``pipeline.native_io``) where it builds, else by PIL. ``--stats``
 prints the run's stage seconds (decode, host-to-device copy, compute,
 device-to-host copy, encode) as one JSON line. ``--seed`` seeds the
-``torch.Generator`` that draws the sweep's values and feeds noise ops.
+``torch.Generator`` that draws the sweep's values and feeds noise ops; in
+``corrupt`` each (corruption, severity) cell has a generator of its own
+from it (``workflows.corruption_generator``).
 
-``corrupt``, ``sweep`` and ``report`` are not ported yet: they exit with a
-message naming the ROADMAP item that ports them.
+``sweep`` and ``report`` are not ported yet: they exit with a message
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -54,7 +61,6 @@ _NO_PARAM_OPS = {"grayscale", "invert", "histogram_equalization", "flip_vertical
 #: commands of the JAX CLI that the port does not have yet, and the ROADMAP
 #: item that ports each
 _NOT_PORTED = {
-    "corrupt": "A.3 (corruptions)",
     "sweep": "A.6 (evaluation and the sweep / report CLI)",
     "report": "A.6 (evaluation and the sweep / report CLI)",
 }
@@ -173,6 +179,37 @@ def cmd_chain(argv):
     _print_stats(argv, stats)
 
 
+def cmd_corrupt(argv):
+    """A CIFAR-10-C-style corrupted store from a folder of images: one PNG
+    per (input, corruption, severity)."""
+    from imagetransformations_tpu_torch.evalx.harness import CORRUPTIONS, EXTRA_CORRUPTIONS
+    from imagetransformations_tpu_torch.workflows import STORE_CORRUPTIONS, corrupt_folder
+
+    in_dir, out_dir = _positional(
+        argv, 2,
+        "corrupt IN_DIR OUT_DIR [--corruptions=a,b] [--severities=1,3,5] [--size=WxH] "
+        "[--seed=N] [--device=cuda|cpu] [--stats]",
+    )[:2]
+    names = _option(argv, "corruptions", ",".join(STORE_CORRUPTIONS)).split(",")
+    sevs = [int(s) for s in _option(argv, "severities", "1,2,3,4,5").split(",")]
+    known = set(CORRUPTIONS) | set(EXTRA_CORRUPTIONS)
+    bad = [n for n in names if n not in known]
+    if bad:
+        raise SystemExit(f"unknown corruptions {bad}; known: {sorted(known)}")
+    bad_sev = [s for s in sevs if not 1 <= s <= 5]
+    if bad_sev:
+        raise SystemExit(f"severities must be in 1..5, got {bad_sev}")
+    stats = {}
+    written = corrupt_folder(in_dir, out_dir, names, sevs, seed=int(_option(argv, "seed", "0")),
+                             size=_parse_size(argv), device=_option(argv, "device", "cuda"),
+                             stats=stats)
+    if not written:
+        raise SystemExit(f"no images found under {in_dir}")
+    print(f"wrote {len(written)} corrupted images ({len(names)} corruptions x "
+          f"{len(sevs)} severities) to {out_dir}")
+    _print_stats(argv, stats)
+
+
 def _not_ported(name: str):
     def cmd(argv):
         raise SystemExit(f"{name} is not ported to imagetransformations_tpu_torch yet: "
@@ -185,6 +222,7 @@ def _not_ported(name: str):
 _COMMANDS = {
     "transform": cmd_transform,
     "chain": cmd_chain,
+    "corrupt": cmd_corrupt,
     **{name: _not_ported(name) for name in _NOT_PORTED},
 }
 

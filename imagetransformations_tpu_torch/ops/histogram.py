@@ -118,3 +118,21 @@ def histogram_equalization(img: torch.Tensor) -> torch.Tensor:
     y_eq = equalize_channel(torch.clamp(torch.round(y), 0, 255)).to(torch.float32)
     rgb = torch.stack(_mix([y_eq, u, v], _YUV2RGB), dim=-1)
     return restore_layout(torch.clamp(torch.round(rgb), 0, 255), single)
+
+
+def image_entropy(img: torch.Tensor, base2: bool = True) -> torch.Tensor:
+    """Shannon entropy of each image's 256-bin gray-level histogram
+    (compute_shannon_entropy, fall_2025/TENT_Pipelines.py:99-121): the luma
+    of 3-channel input (PIL convert('L')), ``-sum p log p`` over the
+    nonzero bins, in bits (``base2``) or nats. Returns f32 [N]. Taken in
+    f64 and rounded to f32, so every device gives the same value (the JAX
+    package sums f32 terms)."""
+    x, _ = as_batch(img)
+    if x.shape[-1] == 3:
+        from imagetransformations_tpu_torch.ops.elementwise import grayscale
+
+        x = grayscale(x, keep_rgb=False)
+    hist = pixel_histogram(x).to(torch.float64)
+    p = hist / hist.sum(dim=1, keepdim=True)
+    logp = torch.where(p > 0, torch.log2(p) if base2 else torch.log(p), 0.0)
+    return (-(p * logp).sum(dim=1)).to(torch.float32)

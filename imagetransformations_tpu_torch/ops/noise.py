@@ -32,6 +32,29 @@ def apply_gaussian_noise(img: torch.Tensor, std, generator: torch.Generator | No
     return restore_layout(finalize(out, img.dtype, "trunc"), single)
 
 
+def gaussian_noise_01(img: torch.Tensor, severity_std, generator: torch.Generator | None = None,
+                      noise=None) -> torch.Tensor:
+    """The TransformationPool's Gaussian noise on the [0, 1] scale:
+    ``clip(x/255 + N(0, s), 0, 1) * 255``, rint for u8
+    (pipenline/cifar_image_transformations.py:39-47; severities .08-.38,
+    CIFAR-10-C's .04-.10). ``noise``: a standard-normal draw of the image's
+    shape, drawn from ``generator`` when not given; ``severity_std`` a
+    scalar or one value an image. The division by 255 is a true division
+    on every device (a tensor divisor: PyTorch's CUDA kernel multiplies by
+    the reciprocal of a Python-number divisor)."""
+    x, single = as_batch(img)
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    else:
+        noise, _ = as_batch(torch.as_tensor(noise, dtype=torch.float32, device=x.device))
+    s = torch.as_tensor(severity_std, dtype=torch.float32, device=x.device)
+    if s.ndim == 0:
+        s = s.expand(x.shape[0])
+    x01 = as_float(x) / torch.tensor(255.0, device=x.device)
+    out = torch.clamp(x01 + noise * s.reshape(-1, 1, 1, 1), 0.0, 1.0) * 255.0
+    return restore_layout(finalize(out, img.dtype, "rint"), single)
+
+
 def impulse_noise(img: torch.Tensor, amount, generator: torch.Generator | None = None,
                   u=None) -> torch.Tensor:
     """Salt and pepper over a fraction ``amount`` of the pixels, all
@@ -56,17 +79,24 @@ def impulse_noise(img: torch.Tensor, amount, generator: torch.Generator | None =
     return restore_layout(finalize(out, img.dtype, "rint"), single)
 
 
-def shot_noise(img: torch.Tensor, lam, generator: torch.Generator | None = None) -> torch.Tensor:
+def shot_noise(img: torch.Tensor, lam, generator: torch.Generator | None = None,
+               draw=None) -> torch.Tensor:
     """Poisson shot noise ``Poisson(x/255 * lam) / lam``, clipped to [0, 1]
     and scaled back by 255, rint for u8 (pipenline/
     cifar_image_transformations.py:60-70; lam 60..3, smaller is more
-    severe). ``lam`` is a scalar or one value an image."""
+    severe). ``lam`` is a scalar or one value an image. ``draw``: the
+    Poisson counts, one a value of the image (the JAX op has no such
+    keyword; it lets a caller hold two devices to one draw), drawn from
+    ``generator`` when not given."""
     x, single = as_batch(img)
     lam_v = torch.as_tensor(lam, dtype=torch.float32, device=x.device)
     if lam_v.ndim == 0:
         lam_v = lam_v.expand(x.shape[0])
     lam_v = lam_v.reshape(-1, 1, 1, 1)
-    rate = as_float(x) / 255.0 * lam_v
-    draw = torch.poisson(rate, generator=generator)
+    if draw is None:
+        rate = as_float(x) / 255.0 * lam_v
+        draw = torch.poisson(rate, generator=generator)
+    else:
+        draw, _ = as_batch(torch.as_tensor(draw, dtype=torch.float32, device=x.device))
     out = torch.clamp(draw / lam_v, 0.0, 1.0) * 255.0
     return restore_layout(finalize(out, img.dtype, "rint"), single)

@@ -19,6 +19,10 @@ compiles (no Pallas kernel there):
 - ``motion_blur``: horizontal 1 x k mean (cv2.filter2D, reflect-101).
 - ``sharpen``: PIL ImageEnhance.Sharpness, the SMOOTH 3x3 filter with its
   exact integer sum and one division by 13, then a trunc blend.
+- ``sobel_edges``: scipy.ndimage.sobel along the last axis, u8 modulo 256
+  or f32.
+- ``pil_box_blur`` / ``pil_gaussian_blur``: PIL's BoxBlur / GaussianBlur in
+  its own integers (24-bit weights, u8 between passes), bit-exact.
 """
 
 from __future__ import annotations
@@ -276,3 +280,97 @@ def sharpen(img: torch.Tensor, factor) -> torch.Tensor:
     if img.dtype == torch.uint8:
         out = torch.clamp(torch.trunc(out), 0.0, 255.0).to(torch.uint8)
     return restore_layout(out, single)
+
+
+def sobel_edges(img: torch.Tensor, mode: str = "wrap_u8") -> torch.Tensor:
+    """Sobel derivative along the last spatial axis (scipy.ndimage.sobel,
+    axis -1, on the luma of an NHWC batch with 1 or 3 channels, or on an
+    [N, H, W] / [H, W] gray batch).
+
+    ``mode="wrap_u8"``: scipy's u8 result, the integer response modulo 256
+    (as apply_background_change uses it, transformation.py:339);
+    ``mode="float"``: the unwrapped f32 response. scipy's default border,
+    mode='reflect', repeats the edge pixel (numpy's "symmetric" pad)."""
+    if img.ndim >= 3 and img.shape[-1] in (1, 3):
+        from imagetransformations_tpu_torch.ops.elementwise import grayscale
+
+        img = grayscale(img, keep_rgb=False)[..., 0]
+    x = img[None] if img.ndim == 2 else img
+    xf = x.to(torch.int32) if mode == "wrap_u8" else x.to(torch.float32)
+    h, w = x.shape[1], x.shape[2]
+    rows = torch.clamp(torch.arange(-1, h + 1, device=x.device), 0, h - 1)
+    cols = torch.clamp(torch.arange(-1, w + 1, device=x.device), 0, w - 1)
+    xp = xf[:, rows][:, :, cols]
+
+    def sl(dy, dx):
+        return xp[:, dy : dy + h, dx : dx + w]
+
+    # correlate with d/dx [-1, 0, 1], then smooth [1, 2, 1] along the other axis
+    d = sl(0, 2) + 2 * sl(1, 2) + sl(2, 2) - sl(0, 0) - 2 * sl(1, 0) - sl(2, 0)
+    out = torch.remainder(d, 256).to(torch.uint8) if mode == "wrap_u8" else d
+    return out[0] if img.ndim == 2 else out
+
+
+# --------------------------------------------------- PIL BoxBlur / GaussianBlur (exact)
+
+
+def pil_gauss_box_radius(radius: float, passes: int = 3) -> float:
+    """PIL GaussianBlur's box radius (BoxBlur.c, Gwosdek's extended box):
+    one fractional radius l + t for each of ``passes`` box passes, so that
+    they reproduce the Gaussian's variance ``radius^2``. In f32, as the C
+    code computes it (f64 flips 1-LSB pixels, e.g. at r = 1.0)."""
+    r = np.float32(radius)
+    sigma2 = r * r / np.float32(passes)
+    ll = np.sqrt(np.float32(12.0) * sigma2 + np.float32(1.0), dtype=np.float32)
+    l = int((ll - np.float32(1.0)) / np.float32(2.0))
+    t = (
+        np.float32(2 * l + 1)
+        * (sigma2 - np.float32(l * (l + 1)) / np.float32(3.0))
+        / (np.float32(2.0) * (np.float32((l + 1) ** 2) - sigma2))
+    )
+    return float(np.float32(l + t))
+
+
+def _pil_box_pass(xi: torch.Tensor, float_radius: float, dim: int) -> torch.Tensor:
+    """One PIL box-blur pass (BoxBlur.c) along H (dim 1) or W (dim 2) of an
+    int64 NHWC batch: 2l+1 inner taps of weight ``ww = trunc(f32(2^24) /
+    (2r + 1))``, the two edge taps at distance l + 1 (clamped to the image)
+    of weight ``fw = (2^24 - (2l+1)ww) // 2``, then ``(sum + 2^23) >> 24``.
+    The inner window is a difference of an exclusive prefix sum; every sum
+    is an exact int64."""
+    fr = np.float32(float_radius)
+    l = int(fr)
+    ww = int(np.float32(1 << 24) / (fr * np.float32(2) + np.float32(1)))
+    fw = ((1 << 24) - (2 * l + 1) * ww) // 2
+    n = xi.shape[dim]
+    idx = torch.clamp(torch.arange(-(l + 1), n + l + 1, device=xi.device), 0, n - 1)
+    xe = xi.index_select(dim, idx)  # edge padded by l + 1
+    q = torch.nn.functional.pad(torch.cumsum(xe, dim=dim).movedim(dim, -1), (1, 0))
+    q = q.movedim(-1, dim)
+    acc = q.narrow(dim, 2 * l + 2, n) - q.narrow(dim, 1, n)  # the 2l+1 inner taps
+    lr = xe.narrow(dim, 0, n) + xe.narrow(dim, 2 * l + 2, n)  # the two edge taps
+    return (acc * ww + lr * fw + (1 << 23)) >> 24
+
+
+def pil_box_blur(img: torch.Tensor, radius: float, passes: int = 1) -> torch.Tensor:
+    """PIL ImageFilter.BoxBlur(radius), bit-exact: ``passes`` horizontal
+    passes, then ``passes`` vertical ones, each quantized to u8 (integers
+    throughout). u8 in, u8 out; float input is truncated and clipped first
+    and comes back as f32."""
+    x, single = as_batch(img)
+    xi = torch.clamp(torch.trunc(as_float(x)), 0.0, 255.0).to(torch.int64)
+    for _ in range(passes):
+        xi = _pil_box_pass(xi, radius, 2)
+    for _ in range(passes):
+        xi = _pil_box_pass(xi, radius, 1)
+    out = xi.to(torch.uint8) if img.dtype == torch.uint8 else xi.to(torch.float32)
+    return restore_layout(out, single)
+
+
+def pil_gaussian_blur(img: torch.Tensor, radius: float) -> torch.Tensor:
+    """PIL ImageFilter.GaussianBlur(radius), bit-exact: three extended-box
+    passes an axis with the variance-matched fractional radius
+    (``pil_gauss_box_radius``), as Pillow implements it; the
+    TransformationPool's defocus_blur primitive
+    (pipenline/cifar_image_transformations.py:72-76)."""
+    return pil_box_blur(img, pil_gauss_box_radius(radius, 3), 3)

@@ -1,6 +1,7 @@
 """Geometric warps (PyTorch): affine matrices, the inverse-map affine warp,
-the reference's rotation, shear, zoom, translation and flip ops, and the
-exact LANCZOS scale.
+the reference's rotation, shear, zoom, translation and flip ops, centre
+crop, the perspective warp, PIL's exact resize and the exact LANCZOS
+scale.
 
 Counterpart of ``imagetransformations_tpu/ops/warp.py``. ``affine_warp``
 is a plain PyTorch gather with PIL's sampling conventions (XLA code in the
@@ -21,7 +22,8 @@ coefficient with a pre-added half, shifts by 22, clips, and quantizes to u8
 drifts by 2 LSB. Every partial sum is an integer below 2^31 in magnitude,
 so a float64 matrix product holds each one exactly (53-bit mantissa); the
 result is converted to int64 and shifted. f32 (and TF32 above all) is not
-exact, and CUDA has no int64 matrix product.
+exact, and CUDA has no int64 matrix product. ``pil_resize`` is PIL's
+``Image.resize`` in the same form, for every filter of ``resize_coeffs``.
 
 ``pil_rotate_matrix`` (defined beside the rotation kernel's wrapper),
 ``shear_matrix``, ``shear_out_width``, ``resize_coeffs`` and its filters
@@ -219,13 +221,17 @@ def apply_rotation(img: torch.Tensor, angle, max_angle_deg: float | None = None)
 
 def apply_shear(img: torch.Tensor, shear_factor: float) -> torch.Tensor:
     """Reference apply_shear: widened canvas (w + ceil(s*h)), AFFINE
-    BICUBIC, white fill."""
+    BICUBIC, white fill. A negative canvas width raises ``ValueError``, as
+    PIL does."""
     x, single = as_batch(img)
     h, w = x.shape[1], x.shape[2]
     s = float(shear_factor)
+    out_w = shear_out_width(s, w, h)
+    if out_w < 0:
+        raise ValueError(f"apply_shear({s}) on a {h}x{w} image gives a canvas width of "
+                         f"w + ceil(s*h) = {out_w} < 0")
     m = torch.tensor(shear_matrix(s, h), dtype=torch.float64).to(F32)
-    out = affine_warp(x, m, out_size=(h, shear_out_width(s, w, h)), method="bicubic",
-                      fill=255.0)
+    out = affine_warp(x, m, out_size=(h, out_w), method="bicubic", fill=255.0)
     return restore_layout(out, single)
 
 
@@ -273,6 +279,80 @@ def flip_vertical(img: torch.Tensor) -> torch.Tensor:
     """Vertical flip (fall_2025/transformations_code:39)."""
     x, single = as_batch(img)
     return restore_layout(torch.flip(x, dims=(1,)), single)
+
+
+def center_crop(img: torch.Tensor, crop_h: int, crop_w: int) -> torch.Tensor:
+    """The centred ``crop_h`` x ``crop_w`` window (top and left offsets
+    ``(size - crop) // 2``)."""
+    x, single = as_batch(img)
+    h, w = x.shape[1], x.shape[2]
+    top, left = (h - crop_h) // 2, (w - crop_w) // 2
+    return restore_layout(x[:, top : top + crop_h, left : left + crop_w], single)
+
+
+def perspective_coeffs(startpoints, endpoints) -> np.ndarray:
+    """Homography coefficients [8] f32 for ``perspective_warp`` from 4 (or
+    more) point pairs (torchvision F.perspective's API,
+    fall_2025/transformations_code:54-67): the inverse map that carries the
+    quad ``startpoints`` onto ``endpoints``, i.e. sends each endpoint back to
+    its startpoint, ``sx = (a ex + b ey + c) / (g ex + h ey + 1)`` and ``sy``
+    alike. Solved on the host in f64 (exact for 4 pairs, least squares for
+    more)."""
+    sp = np.asarray(startpoints, np.float64).reshape(-1, 2)
+    ep = np.asarray(endpoints, np.float64).reshape(-1, 2)
+    if sp.shape[0] != ep.shape[0]:
+        raise ValueError(
+            f"startpoints/endpoints length mismatch: {sp.shape[0]} vs {ep.shape[0]}")
+    if sp.shape[0] < 4:
+        raise ValueError("need at least 4 point pairs")
+    rows, rhs = [], []
+    for (sx, sy), (ex, ey) in zip(sp, ep):
+        rows.append([ex, ey, 1, 0, 0, 0, -sx * ex, -sx * ey])
+        rhs.append(sx)
+        rows.append([0, 0, 0, ex, ey, 1, -sy * ex, -sy * ey])
+        rhs.append(sy)
+    coeffs, *_ = np.linalg.lstsq(np.asarray(rows), np.asarray(rhs), rcond=None)
+    return coeffs.astype(np.float32)
+
+
+def apply_perspective(img: torch.Tensor, startpoints, endpoints, fill: float = 0.0) -> torch.Tensor:
+    """Perspective warp from corner point pairs (torchvision F.perspective
+    semantics): the ``startpoints`` quad onto the ``endpoints`` quad,
+    bilinear."""
+    return perspective_warp(img, perspective_coeffs(startpoints, endpoints), fill=fill)
+
+
+def perspective_warp(img: torch.Tensor, coeffs, fill: float = 0.0) -> torch.Tensor:
+    """Projective warp, bilinear: ``src = (a x + b y + c, d x + e y + f) /
+    (g x + h y + 1)`` at the pixel centres, f32, every op rounded on its own
+    in the JAX package's order (the division a true one); clamped 2x2
+    window, trunc for u8, ``fill`` where the source point leaves the image.
+    ``coeffs``: [8] or one row an image [N, 8]."""
+    x, single = as_batch(img)
+    n, h, w, _ = x.shape
+    cf = torch.atleast_2d(torch.as_tensor(coeffs, dtype=F32, device=x.device))
+    cf = cf.expand(n, 8).reshape(n, 8, 1, 1)
+    yo = torch.arange(h, dtype=F32, device=x.device).view(1, h, 1) + 0.5
+    xo = torch.arange(w, dtype=F32, device=x.device).view(1, 1, w) + 0.5
+    den = cf[:, 6] * xo + cf[:, 7] * yo + 1.0
+    xx = (cf[:, 0] * xo + cf[:, 1] * yo + cf[:, 2]) / den
+    yy = (cf[:, 3] * xo + cf[:, 4] * yo + cf[:, 5]) / den
+    valid = ((xx >= 0) & (xx < w) & (yy >= 0) & (yy < h))[..., None]
+    xf = as_float(x)
+    xin, yin = xx - 0.5, yy - 0.5
+    xfl, yfl = torch.floor(xin), torch.floor(yin)
+    x0, y0 = xfl.to(torch.int64), yfl.to(torch.int64)
+    fx, fy = (xin - xfl)[..., None], (yin - yfl)[..., None]
+    a, b = _gather(xf, y0, x0), _gather(xf, y0, x0 + 1)
+    c, d = _gather(xf, y0 + 1, x0), _gather(xf, y0 + 1, x0 + 1)
+    top = a + fx * (b - a)
+    out = top + fy * ((c + fx * (d - c)) - top)
+    if x.dtype == torch.uint8:
+        out = torch.clamp(torch.trunc(out), 0.0, 255.0)
+        out = torch.where(valid, out, float(fill)).to(torch.uint8)
+    else:
+        out = torch.where(valid, out, float(fill))
+    return restore_layout(out, single)
 
 
 def apply_scale(img: torch.Tensor, scale_factor: float) -> torch.Tensor:
@@ -413,5 +493,37 @@ def apply_scale_batched(img: torch.Tensor, factors, grid: tuple) -> torch.Tensor
     # vertical: o[n, o, w, c] = sum_h t[n, h, w, c] * V[n, o, h]
     o = torch.bmm(vsel, t.reshape(n, h, w * c))  # [n, o=h, w*c]
     o = _round_shift(o).reshape(n, h, w, c)
+    out = o.to(torch.uint8) if img.dtype == torch.uint8 else o.to(torch.float32)
+    return restore_layout(out, single)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_matrix_on(in_size: int, out_size: int, method: str,
+                      device: torch.device) -> torch.Tensor:
+    """``_resize_matrix_fixed`` as f64 [out, in] on ``device``, copied there once."""
+    return torch.from_numpy(_resize_matrix_fixed(in_size, out_size, method)).to(
+        device, torch.float64)
+
+
+def pil_resize(img: torch.Tensor, out_w: int, out_h: int, method: str = "lanczos") -> torch.Tensor:
+    """PIL ``Image.resize((out_w, out_h), filter)``, bit-exact, for the
+    filters of ``resize_coeffs`` ("lanczos", "bilinear", "box"): PIL's
+    22-bit fixed-point coefficients, a horizontal pass, PIL's rounding to u8
+    (``clip((acc + 2^21) >> 22)``), then the vertical pass and the same
+    rounding. Each pass is an f64 matrix product whose every partial sum is
+    an integer below 2^31 in magnitude, so exact in any order (as in
+    ``apply_scale_batched``). u8 in, u8 out; float input is truncated and
+    clipped first and comes back as f32."""
+    x, single = as_batch(img)
+    n, h, w, c = x.shape
+    hmat = _resize_matrix_on(w, int(out_w), method, x.device)
+    vmat = _resize_matrix_on(h, int(out_h), method, x.device)
+    xi = torch.clamp(torch.trunc(x.to(torch.float64)), 0.0, 255.0)
+    # horizontal: t[n, h, o, c] = sum_w x[n, h, w, c] * H[o, w]
+    t = torch.matmul(hmat, xi.permute(0, 2, 1, 3).reshape(n, w, h * c))  # [n, out_w, h*c]
+    t = _round_shift(t).to(torch.float64).reshape(n, out_w, h, c).permute(0, 2, 1, 3)
+    # vertical: o[n, o, w, c] = sum_h t[n, h, w, c] * V[o, h]
+    o = torch.matmul(vmat, t.reshape(n, h, out_w * c))  # [n, out_h, out_w*c]
+    o = _round_shift(o).reshape(n, out_h, out_w, c)
     out = o.to(torch.uint8) if img.dtype == torch.uint8 else o.to(torch.float32)
     return restore_layout(out, single)

@@ -6,6 +6,8 @@ Counterpart of ``imagetransformations_tpu/workflows.py``. Ported so far:
   sweep -> save.
 - ``chain_folder``      <- the JAX CLI's ``chain`` command: folder -> one
   op-chain -> save.
+- ``corrupt_folder``    <- the JAX CLI's ``corrupt`` command: folder -> the
+  CIFAR-10-C store's corruptions at severities 1-5 -> PNGs.
 
 The research workflows (uncertainty report, refinement, TENT, SWAG) wait
 for the port's models and evaluation modules (ROADMAP A.4-A.8).
@@ -25,7 +27,8 @@ from imagetransformations_tpu_torch.core.image import entry_device
 class _Stages:
     """Wall seconds of a folder run's stages into ``stats`` (each stage ends
     after the card has finished the work queued so far), and the device
-    stream's time of the compute stage by CUDA events on the card."""
+    stream's time of the compute stage by CUDA events on the card; a stage
+    timed more than once adds up."""
 
     def __init__(self, stats: dict | None, dev: torch.device):
         self.stats = {} if stats is None else stats
@@ -43,9 +46,11 @@ class _Stages:
             out = fn(*args)
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
-        self.stats[f"{name}_s"] = time.perf_counter() - t0
+        key = f"{name}_s"
+        self.stats[key] = self.stats.get(key, 0.0) + time.perf_counter() - t0
         if name == "compute" and self.dev.type == "cuda":
-            self.stats["compute_event_ms"] = start.elapsed_time(stop)
+            self.stats["compute_event_ms"] = (self.stats.get("compute_event_ms", 0.0)
+                                              + start.elapsed_time(stop))
         return out
 
 
@@ -170,3 +175,87 @@ def chain_folder(
         return out_paths
 
     return stages.timed("encode", write)
+
+
+#: the CIFAR-10-C store's 19 generators: the canonical 15, then the store's
+#: four extras (not rotation / translation, which are the sweep's)
+STORE_CORRUPTIONS = (
+    "gaussian_noise", "shot_noise", "impulse_noise", "defocus_blur", "glass_blur",
+    "motion_blur", "zoom_blur", "snow", "frost", "fog", "brightness", "contrast",
+    "elastic_transform", "pixelate", "jpeg_compression",
+    "speckle_noise", "gaussian_blur", "spatter", "saturate",
+)
+
+
+def corruption_generator(seed: int, name: str, severity: int,
+                         device: torch.device) -> torch.Generator:
+    """The generator of one (corruption, severity) cell: seeded from
+    (``seed``, the cell's place in the fixed table of every known
+    corruption x severities 1-5), so a cell draws the same numbers whichever
+    other cells a run asks for."""
+    from imagetransformations_tpu_torch.evalx.harness import CORRUPTIONS, EXTRA_CORRUPTIONS
+
+    cell = [*CORRUPTIONS, *EXTRA_CORRUPTIONS].index(name) * 5 + severity - 1
+    state = np.random.SeedSequence([int(seed), cell]).generate_state(1, dtype=np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def _unique_stems(paths: list[str], in_dir: str) -> list[str]:
+    """A stem an input from its in_dir-relative path (separators -> '_'),
+    a duplicate suffixed ``_1``, ``_2``, ... (the JAX CLI's rule)."""
+    stems, seen = [], {}
+    for p in paths:
+        stem = os.path.splitext(os.path.relpath(p, in_dir))[0].replace(os.sep, "_")
+        k = seen.get(stem, 0)
+        seen[stem] = k + 1
+        stems.append(stem if k == 0 else f"{stem}_{k}")
+    return stems
+
+
+def corrupt_folder(
+    in_dir: str,
+    out_dir: str,
+    names=STORE_CORRUPTIONS,
+    severities=(1, 2, 3, 4, 5),
+    seed: int = 0,
+    size: tuple[int, int] | None = None,
+    native: bool | None = None,
+    device: str | torch.device | None = None,
+    stats: dict | None = None,
+) -> list[str]:
+    """The JAX CLI's ``corrupt`` command as an API: every image of a folder
+    through each corruption of ``names`` (``evalx.harness.corrupt``) at each
+    of ``severities`` -> PNGs named ``{stem}_{name}_severity{sev}.png``
+    (PIL). Returns the file names written (none for an empty folder).
+
+    Each (name, severity) cell draws from its own ``corruption_generator``
+    of ``seed``. ``size``, ``native`` (the decode only: the outputs are
+    PNGs), ``device`` and ``stats`` as in ``transform_folder``; the compute,
+    copy and encode stages add up over the cells."""
+    from PIL import Image
+
+    from imagetransformations_tpu_torch.evalx.harness import corrupt
+
+    dev = entry_device(device, "corrupt_folder")
+    stages = _Stages(stats, dev)
+    imgs, paths, _ = _load(in_dir, size, native, stages)
+    if len(paths) == 0:
+        return []
+    stems = _unique_stems(paths, in_dir)
+    x = stages.timed("h2d", lambda: torch.from_numpy(imgs).to(dev))
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+    for name in names:
+        for sev in severities:
+            g = corruption_generator(seed, name, sev, dev)
+            out = stages.timed("compute", corrupt, x, name, sev, g)
+            arrs = stages.timed("d2h", lambda: out.cpu().numpy())
+
+            def write():
+                for arr, stem in zip(arrs, stems):
+                    fn = f"{stem}_{name}_severity{sev}.png"
+                    Image.fromarray(arr).save(os.path.join(out_dir, fn))
+                    written.append(fn)
+
+            stages.timed("encode", write)
+    return written

@@ -7,7 +7,10 @@ Prints one JSON line per gate of the port's warp, fast-sweep, blur, row
 shift, op and chain tests (tests/test_torch_warp.py,
 tests/test_torch_apply_all_fast.py, tests/test_torch_blur.py,
 tests/test_torch_shear.py, tests/test_torch_ops.py,
-tests/test_torch_chain_full.py), on the same inputs: the largest difference
+tests/test_torch_chain_full.py; the per-op API, the composites
+and every corruption at severities 1-5 on 3x32x32x3 with the same numpy
+draws, tests/test_torch_ops_api.py, test_torch_composite.py,
+test_torch_corruptions.py), on the same inputs: the largest difference
 in LSB and the share of values (or, for NEAREST rotation, of pixels) that
 differ, against the JAX function (Pallas in interpret mode) and the numpy
 oracle. The tests assert the budgets; this prints the measured values. Runs
@@ -192,6 +195,7 @@ def main() -> int:
             emit(f"affine_warp {method} {name}", imgs.shape, "f64 oracle", **values(out, ref))
     blur_and_shears()
     ops_and_chains()
+    api_and_corruptions()
     return 0
 
 
@@ -275,6 +279,65 @@ def ops_and_chains() -> None:
         want = jchain.build_chain_fn([jchain.OpSpec(n, dict(p)) for n, p in ops], **kw)(x)
         emit(f"build_chain_fn {name}", imgs.shape, "jax build_chain_fn",
              **values(out, want), **pixels(out, want))
+
+
+def api_and_corruptions() -> None:
+    """The A.2 ops whose gate is a budget (the perspective warp, the simple
+    background blend, the 3-D rotation alias) and every corruption of the
+    harness at severities 1-5, the JAX op fed the port's numpy draws
+    (``harness.numpy_draws``; shot_noise takes no draw in JAX)."""
+    from imagetransformations_tpu.ops import composite as jcp
+    from imagetransformations_tpu.ops import corruptions as jc
+    from imagetransformations_tpu.ops import noise as jnz
+
+    from imagetransformations_tpu_torch.evalx import harness as th
+    from imagetransformations_tpu_torch.ops import composite as tcp
+
+    imgs = np.random.default_rng(1234).integers(0, 256, (3, 32, 32, 3), dtype=np.uint8)
+    x, t = jnp.asarray(imgs), torch.from_numpy(imgs)
+    sp, ep = [[0, 0], [31, 0], [31, 31], [0, 31]], [[3, 2], [29, 0], [31, 29], [1, 31]]
+    emit("apply_perspective", imgs.shape, "jax (XLA-CPU FMA)",
+         **values(twp.apply_perspective(t, sp, ep).numpy(), jwp.apply_perspective(x, sp, ep)))
+    bg = (0.93, 0.1, 0.27)
+    emit("apply_background_change_simple", imgs.shape, "jax (XLA-CPU FMA)",
+         **values(tcp.apply_background_change_simple(t, bg).numpy(),
+                  jcp.apply_background_change_simple(x, jnp.asarray(bg))))
+    for angle in (10.0, -22.5, 45.0):
+        out, want = tcp.apply_rotation_3d(t, angle).numpy(), jcp.apply_rotation_3d(x, angle)
+        emit(f"apply_rotation_3d {angle}", imgs.shape, "jax (f32 NEAREST)", **pixels(out, want))
+    jax_ops = {
+        "gaussian_noise": lambda v, d: jnz.gaussian_noise_01(x, v, **d),
+        "impulse_noise": lambda v, d: jnz.impulse_noise(x, v, **d),
+        "defocus_blur": lambda v, d: jc.defocus_blur_disk(x, *v),
+        "glass_blur": lambda v, d: jc.glass_blur(x, *v, **d),
+        "motion_blur": lambda v, d: jc.motion_blur_directional(x, *v, **d),
+        "zoom_blur": lambda v, d: jc.zoom_blur(x, v),
+        "snow": lambda v, d: jc.snow(x, *v, **d),
+        "frost": lambda v, d: jc.frost(x, *v, **d),
+        "fog": lambda v, d: jc.fog(x, *v, **d),
+        "brightness": lambda v, d: jc.brightness_hsv(x, v),
+        "contrast": lambda v, d: jc.contrast_meanpreserve(x, v),
+        "elastic_transform": lambda v, d: jc.elastic_transform_affine(
+            x, *jc.elastic_affine_pixels(32, 32, *v), **d),
+        "pixelate": lambda v, d: jc.pixelate(x, v),
+        "jpeg_compression": lambda v, d: jc.jpeg_compression(x, v),
+        "speckle_noise": lambda v, d: jc.speckle_noise(x, v, **d),
+        "gaussian_blur": lambda v, d: jc.gaussian_blur_sigma_op(x, v),
+        "spatter": lambda v, d: jc.spatter(x, *v, **d),
+        "saturate": lambda v, d: jc.saturate_hsv(x, *v),
+        "rotation": lambda v, d: jwp.apply_rotation(x, v),
+        "translation": lambda v, d: jwp.apply_translation(x, v),
+    }
+    for name, jfn in jax_ops.items():
+        sevs = (th.CORRUPTIONS.get(name) or th.EXTRA_CORRUPTIONS[name])[1]
+        for sev in range(1, 6):
+            rng = np.random.default_rng([1234, sev])
+            draws = th.numpy_draws(imgs, name, sev, rng)
+            out = th.corrupt(t, name, sev, None,
+                             **{k: torch.from_numpy(v) for k, v in draws.items()}).numpy()
+            want = jfn(sevs[sev - 1], {k: jnp.asarray(v) for k, v in draws.items()})
+            emit(f"corrupt {name} {sev}", imgs.shape, "jax, the same draws",
+                 **values(out, want), **pixels(out, want))
 
 
 if __name__ == "__main__":
