@@ -45,6 +45,23 @@ and 64x224x224 (ImageNet-C) on the card, each held to the CPU path on its
 first images within 1 LSB (numpy draws; ``rotation`` on the NEAREST
 rotation kernel), and the folder phase's ``corrupt`` command takes 256
 PNGs of 32x32 through the store's 19 corruptions at severities 1-5.
+Then phase ``models`` runs each classifier of ``models`` (ResNet-20 / 56,
+SimpleCNN on 10000x32x32 in ``evaluate_batched``'s batches of 256, the
+Bayesian CNN's 50 predictive samples of 1000 images, ResNet-18 / 50 on
+256x224x224, VGG-19-BN on 64x224x224; random weights from a seed): ms and
+images a second, the bound (multiply-adds over the f32 FMA rate), peak
+device memory, the card's logits against the CPU's on the first images,
+and the forward with TF32 switched on by the caller bit-equal to TF32 off;
+and phase ``sweep`` holds the backward passes (one Adam step of a
+ResNet-20, ODIN's input gradient) with TF32 on bit-equal to off, runs
+``corruption_sweep`` with ODIN and Mahalanobis on
+a demo-trained ResNet-20 over 10000 synthetic images, the 15 canonical
+corruptions and ``rotation`` (kernel #12) at severities 1-5, holds the
+same cells on 64 images to the CPU's (numpy draws), and times the
+``sweep`` and ``report`` commands in process. Both phases run under the
+flags a user has by default, TF32 on for cuDNN (here cuBLAS's too), so the
+port's scoped true f32 (``core.precision.full_f32``) is what holds their
+results to the CPU's; the rest of the script runs with TF32 off.
 Prints one JSON line per phase; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
@@ -53,6 +70,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -189,6 +207,22 @@ def emit(obj) -> None:
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def caller_tf32(torch, on: bool, deterministic: bool | None = None):
+    """The caller's TF32 flags for cuBLAS and cuDNN set to ``on`` (and
+    cuDNN's deterministic flag to ``deterministic`` where given) for the
+    scope; the previous flags restored after."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic)
+    matmul.allow_tf32 = cudnn.allow_tf32 = on
+    if deterministic is not None:
+        cudnn.deterministic = deterministic
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic = saved
 
 
 def images(torch, shape, seed, c=3):
@@ -1147,6 +1181,359 @@ def corrupt_phase(torch, mk) -> dict:
     return launches
 
 
+# phase models: (model, images, side, evaluate_batched's batch size (None: one
+# call on the whole batch), predictive samples, images the CPU recomputes)
+MODEL_ROWS = (
+    ("resnet20", 10000, 32, 256, None, 64),
+    ("resnet56", 10000, 32, 256, None, 64),
+    ("simple_cnn", 10000, 32, 256, None, 64),
+    ("bayesian_cnn", 1000, 32, None, 50, 64),
+    ("resnet18", 256, 224, None, None, 4),
+    ("resnet50", 256, 224, None, None, 4),
+    ("vgg19_bn", 64, 224, None, None, 4),
+)
+# f32 outside the tensor cores (no TF32): 67 TFLOP/s counts an FMA as two
+F32_FMA_PER_S = 67e12 / 2
+# phase sweep: the CIFAR-10 test set's size, the images the CPU recomputes
+SWEEP_IMAGES, SWEEP_CPU_IMAGES = 10000, 64
+
+
+def make_model(name: str, device: str):
+    from imagetransformations_tpu_torch import models as pm
+
+    return {"resnet20": lambda: pm.resnet20(device=device),
+            "resnet56": lambda: pm.resnet56(device=device),
+            "simple_cnn": lambda: pm.SimpleCNN(device=device),
+            "bayesian_cnn": lambda: pm.BayesianCNN(device=device),
+            "resnet18": lambda: pm.ResNet18(device=device),
+            "resnet50": lambda: pm.ResNet50(device=device),
+            "vgg19_bn": lambda: pm.VGG19BN(device=device)}[name]()
+
+
+def macs_per_image(torch, model, x1) -> int:
+    """Multiply-adds of one image's forward (``x1``: a batch of one), from the
+    shapes each convolution and dense layer sees (forward hooks)."""
+    from imagetransformations_tpu_torch.models.bayesian import (
+        BayesianCNN,
+        BayesianConv,
+        BayesianDense,
+    )
+
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+        elif isinstance(mod, BayesianConv):
+            k = mod.mu[0].numel()
+        elif isinstance(mod, torch.nn.Linear):
+            k = mod.in_features
+        else:  # BayesianDense
+            k = mod.mu.shape[1]
+        total[0] += out[0].numel() * k
+
+    kinds = (torch.nn.Conv2d, torch.nn.Linear, BayesianConv, BayesianDense)
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, kinds)]
+    try:
+        with torch.no_grad():
+            if isinstance(model, BayesianCNN):
+                model(x1, generator=torch.Generator(device=x1.device).manual_seed(0))
+            else:
+                model(x1)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def logits_budget(torch, card, cpu, what: str) -> dict:
+    """Card logits against the CPU's: max |difference| <= 1e-3 * max(1,
+    max |logit|), and the same argmax except where the CPU's top two logits
+    are within that budget. Fails otherwise."""
+    card = card.float().cpu()
+    budget = 1e-3 * max(1.0, float(cpu.abs().max()))
+    err = float((card - cpu).abs().max())
+    top2 = torch.topk(cpu, 2, dim=-1).values
+    close = (top2[:, 0] - top2[:, 1]) <= budget
+    agree = torch.argmax(card, -1) == torch.argmax(cpu, -1)
+    if err > budget or not bool((agree | close).all()):
+        fail(f"{what}: card against CPU max |d| {err} (budget {budget}), argmax differs on "
+             f"{int((~agree).sum())} images ({int((~agree & close).sum())} with close top-2)")
+    return {"max_abs_vs_cpu": err, "budget": budget, "argmax_equal": int(agree.sum()),
+            "argmax_differs_close_top2": int((~agree).sum())}
+
+
+def models_phase(torch) -> list:
+    """Each classifier of ``models`` at full width on the card, random
+    weights from a seed: ms for the whole batch (CUDA events, 3 runs after 2
+    warm-ups) and images a second; the bound (the forward's multiply-adds,
+    counted from its layers' shapes, over the f32 FMA rate, no TF32) and the
+    share of it reached; peak device memory; the card's logits against the
+    CPU's on the first images; the same forward with TF32 switched on by
+    the caller, bit-equal to TF32 off (``full_f32``). The CIFAR nets run as
+    ``evaluate_batched`` runs them (batches of 256), the BNN as 50
+    predictive samples, the ImageNet nets one call on the whole batch. The
+    BNN's card-against-CPU check runs a copy at its means (rho -100), since
+    the two devices draw other weights."""
+    import copy
+
+    from imagetransformations_tpu_torch.evalx import harness as hs
+    from imagetransformations_tpu_torch.models import bayesian as pb
+    from imagetransformations_tpu_torch.models.imagenet import imagenet_model_space
+    from imagetransformations_tpu_torch.models.resnet import cifar_model_space
+
+    rows = []
+    for name, n, side, batch, samples, m in MODEL_ROWS:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            cpu_model = make_model(name, "cpu")
+        model = copy.deepcopy(cpu_model).cuda()
+        space = cifar_model_space if side == 32 else imagenet_model_space
+        x = images(torch, (n, side, side), SEED + 200)
+        labels = torch.zeros(n, dtype=torch.int64, device="cuda")
+        if batch is not None:
+            def run():
+                return hs.evaluate_batched(model, space, x, labels, batch, metric_names=(),
+                                           device="cuda")["logits"]
+        elif samples is not None:
+            def run():
+                g = torch.Generator(device="cuda").manual_seed(SEED)
+                with torch.no_grad():
+                    return pb.predictive_samples(model, space(x), g, samples)
+        else:
+            def run():
+                with torch.no_grad():
+                    return model(space(x))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if not bool(torch.isfinite(out).all()):
+            fail(f"models {name}: non-finite logits")
+        ms = time_ms(torch, run, 3)
+        macs = macs_per_image(torch, model, space(x[:1])) * n * (samples or 1)
+        bound = macs / F32_FMA_PER_S * 1e3
+        # the card against the CPU on the first m images
+        xs = space(x[:m])
+        ref_cpu, ref_card = cpu_model, model
+        if samples is not None:  # the BNN at its means
+            ref_cpu = copy.deepcopy(cpu_model)
+            with torch.no_grad():
+                for mod in ref_cpu.modules():
+                    if isinstance(mod, pb._Bayesian):
+                        mod.rho.fill_(-100.0)
+                        mod.bias_rho.fill_(-100.0)
+            ref_card = copy.deepcopy(ref_cpu).cuda()
+
+        def fwd(net, inp):
+            with torch.no_grad():
+                if samples is not None:
+                    return net(inp, generator=torch.Generator(device=inp.device).manual_seed(0))
+                return net(inp)
+
+        t0 = time.perf_counter()
+        cpu = fwd(ref_cpu, xs.cpu())
+        cpu_s = time.perf_counter() - t0
+        card = out[:m] if samples is None else fwd(ref_card, xs)
+        check = logits_budget(torch, card, cpu, f"models {name}")
+        # TF32 switched on by the caller: bit-equal to TF32 off
+        with caller_tf32(torch, False):
+            off = fwd(ref_card, xs)
+        with caller_tf32(torch, True):
+            on = fwd(ref_card, xs)
+        if not torch.equal(on, off):
+            fail(f"models {name}: TF32 on by the caller changed the logits by "
+                 f"{float((on - off).abs().max())}")
+        row = {"phase": "models", "model": name, "batch": [n, side, side, 3],
+               "evaluate_batch": batch, "samples": samples, "ms": ms,
+               "images_per_s": n / (ms * 1e-3), "macs_per_image": macs // n // (samples or 1),
+               "bound_ms": bound, "bound_by": "operations", "bound_share": bound / ms,
+               "peak_memory_bytes": peak, "cpu_images": m, "cpu_s": cpu_s, **check,
+               "tf32_on_bit_equal": True,
+               "parameters": sum(p.numel() for p in model.parameters())}
+        emit(row)
+        rows.append(row)
+        del model, cpu_model, x, out, ref_card, ref_cpu
+        torch.cuda.empty_cache()
+    return rows
+
+
+def backward_tf32_row(torch) -> dict:
+    """The backward passes with TF32 switched on by the caller bit-equal to
+    TF32 off: one Adam step of ``make_train_step`` on a ResNet-20 (256
+    images of 32x32; every gradient and every parameter and statistic after
+    the step) and ODIN's input gradient (``uq.odin``, 256 images). cuDNN
+    reads the flag when a backward runs, so ``full_f32`` has to hold around
+    the backward as well as the forward. cuDNN's deterministic algorithms
+    both times, so that only TF32 could make the runs differ. Fails
+    otherwise."""
+    import copy
+
+    from imagetransformations_tpu_torch import models as pm
+    from imagetransformations_tpu_torch.models import training as pt
+    from imagetransformations_tpu_torch.models.resnet import cifar_model_space
+    from imagetransformations_tpu_torch.uq import odin
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        base = pm.resnet20(device="cpu").cuda()
+    x = cifar_model_space(images(torch, (256, 32, 32), SEED + 300))
+    y = torch.randint(0, 10, (256,), generator=torch.Generator(device="cuda").manual_seed(SEED),
+                      device="cuda")
+    runs = {}
+    for on in (False, True):
+        model = copy.deepcopy(base)
+        with caller_tf32(torch, on, deterministic=True):
+            grad_x = odin._input_gradient(model, x)
+            pt.make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3))(x, y)
+        runs[on] = ({"input": grad_x, **{k: p.grad for k, p in model.named_parameters()}},
+                    model.state_dict())
+    differ = [k for k, g in runs[False][0].items() if not torch.equal(runs[True][0][k], g)]
+    differ += [k for k, v in runs[False][1].items() if not torch.equal(runs[True][1][k], v)]
+    if differ:
+        fail(f"sweep: TF32 on by the caller changed the backward passes: {differ[:8]}")
+    row = {"phase": "sweep", "check": "backward_tf32_on_bit_equal", "batch": [256, 32, 32, 3],
+           "tensors": len(runs[False][0]) + len(runs[False][1]), "differ": 0}
+    emit(row)
+    return row
+
+
+def sweep_phase(torch, mk) -> dict:
+    """``corruption_sweep`` with ``uq_extras`` on the card: a ResNet-20
+    trained by the demo recipe (``utils.demo.get_model``: 512 synthetic
+    images, 3 epochs) on the card; Mahalanobis fitted on its clean training
+    features; ODIN at T 1000, eps 0.0014; the 15 canonical corruptions and
+    ``rotation`` (the NEAREST rotation kernel) at severities 1-5 over 10 000
+    synthetic 32x32 test images, one generator a cell from the seed. Per
+    cell: wall ms (host clock around the cell, synchronized) and CUDA-event
+    ms; the total; #12's launches, counters reset just before the 80 cells
+    and read just after (fails if none). Then the same 80 cells on the first
+    64 images, on the card and on the CPU with the same per-cell numpy draws
+    (``harness.numpy_draws``), the same model and the same Mahalanobis state:
+    |d accuracy| <= 1/64 and |d AUROC| <= 0.01 in every column (fails
+    otherwise). Returns the launches of the 80-cell run by kernel."""
+    import copy
+
+    import numpy as np
+
+    from imagetransformations_tpu_torch.evalx import harness as hs
+    from imagetransformations_tpu_torch.pipeline.datasets import synthetic
+    from imagetransformations_tpu_torch.uq import mahalanobis as maha
+    from imagetransformations_tpu_torch.utils import demo
+
+    names = (*hs.CORRUPTIONS, "rotation")
+    xtr, ytr = synthetic(512, seed=0)
+    xte, yte = synthetic(SWEEP_IMAGES, seed=1)
+    t0 = time.perf_counter()
+    model_fn, space, model = demo.get_model(xtr, ytr, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    with torch.no_grad():
+        st = maha.fit(model.features(space(torch.from_numpy(xtr).cuda())))
+    extras = {"feats_logits_fn": model.features_and_logits, "maha_mean": st.mean,
+              "maha_precision": st.precision}
+    x, y = torch.from_numpy(xte).cuda(), torch.from_numpy(yte).cuda()
+    metrics = ("shannon_entropy", "msp", "margin", "energy")
+
+    def cell(name, sev, imgs, labels):
+        return hs.corruption_sweep(model_fn, space, imgs, labels, seed=SEED,
+                                   corruption_names=(name,), severities=(sev,),
+                                   metric_names=metrics, uq_extras=extras,
+                                   device="cuda")[name][sev]
+
+    cell("gaussian_noise", 1, x[:512], y[:512])  # warm-up
+    torch.cuda.synchronize()
+    for k in mk.LAUNCHES:
+        mk.LAUNCHES[k] = 0
+    cells, t_all = [], time.perf_counter()
+    for name in names:
+        for sev in range(1, 6):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            res = cell(name, sev, x, y)
+            end.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            vals = [res["accuracy"], *res["auroc"].values()]
+            if not all(0.0 <= v <= 1.0 for v in vals) or len(res["auroc"]) != len(metrics) + 2:
+                fail(f"sweep {name} {sev}: bad result {res}")
+            cells.append({"name": name, "severity": sev, "ms": wall,
+                          "event_ms": start.elapsed_time(end), **res})
+    total_s = time.perf_counter() - t_all
+    launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+    if not launches.get("pil_rotate_nearest"):
+        fail(f"sweep: kernel #12 was not launched by the rotation cells: {launches}")
+    # the card against the CPU on the first images, with numpy draws
+    m = SWEEP_CPU_IMAGES
+    imgs, labels = xte[:m], yte[:m]
+    draws = {(nm, sev): hs.numpy_draws(imgs, nm, sev,
+                                       np.random.default_rng([SEED, 14, names.index(nm), sev]))
+             for nm in names for sev in range(1, 6)}
+    cpu_model = copy.deepcopy(model).cpu()
+
+    def small(net, dev, mstate):
+        return hs.corruption_sweep(net, space, imgs, labels, corruption_names=names,
+                                   metric_names=metrics, batch_size=m,
+                                   cell_draws=lambda nm, sev: draws[(nm, sev)],
+                                   uq_extras={"feats_logits_fn": net.features_and_logits,
+                                              "maha_mean": mstate.mean,
+                                              "maha_precision": mstate.precision},
+                                   device=dev)
+
+    card64 = small(model, "cuda", st)
+    t0 = time.perf_counter()
+    cpu64 = small(cpu_model, "cpu", maha.MahalanobisState(st.mean.cpu(), st.precision.cpu()))
+    cpu_s = time.perf_counter() - t0
+    d_acc = d_auc = 0.0
+    differing = 0
+    for nm in names:
+        for sev in range(1, 6):
+            g, w = card64[nm][sev], cpu64[nm][sev]
+            da = abs(g["accuracy"] - w["accuracy"])
+            du = max(abs(g["auroc"][k] - w["auroc"][k]) for k in w["auroc"])
+            if da > 1 / m or du > 0.01:
+                fail(f"sweep {nm} {sev}: card against CPU on {m} images: |d accuracy| {da}, "
+                     f"|d AUROC| {du}")
+            differing += da > 0 or du > 0
+            d_acc, d_auc = max(d_acc, da), max(d_auc, du)
+    slowest = sorted(cells, key=lambda c: -c["ms"])[:5]
+    emit({"phase": "sweep", "shape": [SWEEP_IMAGES, 32, 32, 3], "cells": cells,
+          "total_s": total_s, "cell_ms_mean": total_s * 1e3 / len(cells), "train_s": train_s,
+          "slowest_cells": [[c["name"], c["severity"], c["ms"]] for c in slowest],
+          "launches": launches, "cpu_images": m, "cpu_s": cpu_s,
+          "max_d_accuracy_vs_cpu": d_acc, "max_d_auroc_vs_cpu": d_auc,
+          "cells_differing_vs_cpu": differing, "metrics": [*metrics, "odin", "mahalanobis"]})
+    return {k: v for k, v in launches.items()}
+
+
+def sweep_cli_rows(torch, mk) -> list:
+    """The ``sweep`` and ``report`` commands on the card, in process, on
+    synthetic data (an empty ``--data-root``), ``--severities=1``: wall
+    seconds, the commands' stage seconds (``--stats``) and the device's
+    kernel and copy time under torch.profiler over a third run's wall (the
+    folder rows' busy share); the files each wrote (PNGs need matplotlib)."""
+    import tempfile
+
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp:
+        for cmd in ("sweep", "report"):
+            out_dir = os.path.join(tmp, cmd)
+            argv = [cmd, f"--data-root={tmp}", f"--out-dir={out_dir}", "--severities=1",
+                    "--device=cuda", "--stats"]
+            stats, wall, launches, device_us = measure_cli(torch, mk, argv)
+            busy = (device_us["kernels"] + device_us["copies"]) / 1e6 / wall
+            row = {"phase": "sweep", "command": cmd, "wall_s": wall, "stats": stats,
+                   "device_kernel_ms": device_us["kernels"] / 1e3,
+                   "device_copy_ms": device_us["copies"] / 1e3,
+                   "device_busy_share": busy if device_us["kernels"] > 0 else None,
+                   "launches": launches, "files": sorted(os.listdir(out_dir))}
+            emit(row)
+            rows.append(row)
+    return rows
+
+
 def mode_row(torch, mode, shape, run, want, b, launches) -> dict:
     err = max_lsb(torch, run(), want)
     if err != 0:
@@ -1880,6 +2267,18 @@ def main() -> int:
             if e["name"] == k:
                 e["launches"] += v
     emit(folder_corrupt_run(torch, mk))
+
+    # ---- the classifiers, and the evaluation sweep with its CLI ------------
+    # the models and the sweep under a user's flags, TF32 on by the caller:
+    # full_f32 has to hold inside every forward and backward of the port
+    with caller_tf32(torch, True):
+        models_phase(torch)
+        backward_tf32_row(torch)
+        for k, v in sweep_phase(torch, mk).items():
+            for e in entries:
+                if e["name"] == k:
+                    e["launches"] += v
+        sweep_cli_rows(torch, mk)
 
     # ---- geometry: the luma kernel's band rows and images a block ----------
     # ms of each geometry at 4096x32x32 and 32x512x512 (byte-equal to the

@@ -18,8 +18,13 @@ JAX package's whole per-op API (``ops`` exports its 31 names, among them
 ``pil_gaussian_blur``, ``gaussian_noise_01`` and ``image_entropy``; and
 ``ops.warp.pil_resize``), ``ops.composite`` (background change, random crop, the
 3-D-transform aliases), the 19 CIFAR-10-C generators of
-``ops.corruptions`` with their dispatch ``evalx.harness.corrupt``, and the
-``transform`` / ``chain`` / ``corrupt`` CLI.
+``ops.corruptions`` with their dispatch ``evalx.harness.corrupt``; the
+classifiers of ``models`` (CIFAR ResNet-20/56, SimpleCNN, the Bayesian
+CNN, ResNet-18/50 and VGG-19-BN, with ``from_flax`` and the training
+steps), the logit metrics, calibration, ODIN and Mahalanobis of
+``uq``, the evaluation harness (``evaluate_batched``, ``corruption_sweep``,
+``analyze_uncertainty_thresholds``) with ``evalx.report``; and the
+``transform`` / ``chain`` / ``corrupt`` / ``sweep`` / ``report`` CLI.
 Hand-written CUDA kernels in ``csrc/``, one or more for each of the JAX
 package's twelve Pallas kernels, carry them on the card; they are built with
 nvcc at first use.
@@ -31,10 +36,15 @@ nvcc at first use.
                  holds the kernel wrappers, their plain PyTorch versions and
                  the build.
 - ``pipeline`` : declarative op-chains, the 8-type batch sweep, folder I/O.
-- ``evalx``    : the corruption dispatch (``harness.corrupt``).
+- ``models``   : the classifiers (NCHW, true f32: ``core.precision.full_f32``),
+                 parameter conversion from and to flax, training steps.
+- ``uq``       : uncertainty scores, calibration and ranking metrics, ODIN,
+                 Mahalanobis.
+- ``evalx``    : the corruption dispatch and sweep harness, reports.
+- ``utils``    : typed configuration, the demo model of the CLI.
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 from imagetransformations_tpu_torch.core.grids import PARAM_GRIDS  # noqa: F401
 from imagetransformations_tpu_torch.ops.hopper import (  # noqa: F401

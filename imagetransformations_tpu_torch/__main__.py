@@ -27,13 +27,29 @@ device-to-host copy, encode) as one JSON line. ``--seed`` seeds the
 ``corrupt`` each (corruption, severity) cell has a generator of its own
 from it (``workflows.corruption_generator``).
 
-``sweep`` and ``report`` are not ported yet: they exit with a message
-naming the ROADMAP item that ports them.
+- ``sweep [--data-root=DIR] [--severities=N] [--batch-size=B]
+  [--metrics=a,b] [--out-dir=DIR] [--seed=N] [--device=cuda|cpu] [--stats]``
+  — FINAL_cifar_corrupted.py: the demo ResNet-20 (``utils.demo``: CIFAR-10
+  pickles under ``--data-root``, else synthetic data) through the 15
+  canonical corruptions at severities 1..N (``evalx.corruption_sweep``, a
+  generator a cell from ``--seed``); prints the accuracy / AUROC table and
+  writes it as ``sweep.json`` and, with matplotlib, ``auc_{metric}.png`` to
+  ``--out-dir``. ``--data-parallel`` (the JAX sweep over a device mesh) is
+  not ported (ROADMAP A.9) and fails.
+- ``report [--data-root=DIR] [--out-dir=DIR] [--seed=N] [--device=cuda|cpu]
+  [--stats]`` — the demo model's uncertainty report
+  (``workflows.uncertainty_report``): accuracy, each metric's AUROC and
+  Youden threshold, histograms in ``--out-dir`` (with matplotlib).
+
+Where matplotlib is missing the commands say that no PNG was written.
+``--stats`` prints the stage seconds (``train_s``, ``sweep_s`` or
+``report_s``) as one JSON line, last.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 
 #: default parameter key per op name, so ``blur:1.5`` parses without
@@ -57,14 +73,6 @@ _OP_PARAM = {
     "shear": "factor",
 }
 _NO_PARAM_OPS = {"grayscale", "invert", "histogram_equalization", "flip_vertical"}
-
-#: commands of the JAX CLI that the port does not have yet, and the ROADMAP
-#: item that ports each
-_NOT_PORTED = {
-    "sweep": "A.6 (evaluation and the sweep / report CLI)",
-    "report": "A.6 (evaluation and the sweep / report CLI)",
-}
-
 
 def parse_ops(spec: str):
     """``"blur:1.5,rotation:15,grayscale"`` -> list[OpSpec]."""
@@ -210,20 +218,93 @@ def cmd_corrupt(argv):
     _print_stats(argv, stats)
 
 
-def _not_ported(name: str):
-    def cmd(argv):
-        raise SystemExit(f"{name} is not ported to imagetransformations_tpu_torch yet: "
-                         f"ROADMAP {_NOT_PORTED[name]}; use python -m imagetransformations_tpu "
-                         f"{name}")
+def _demo(argv, stats: dict):
+    """The demo model and test data on ``--device`` (``utils.demo``)."""
+    import time
 
-    return cmd
+    from imagetransformations_tpu_torch.utils.demo import get_data, get_model
+
+    xtr, ytr, xte, yte = get_data(_option(argv, "data-root", "./data"), verbose=True)
+    t0 = time.perf_counter()
+    model_fn, to_model, _ = get_model(xtr, ytr, device=_option(argv, "device", "cuda"),
+                                      seed=int(_option(argv, "seed", "0")))
+    stats["train_s"] = time.perf_counter() - t0
+    stats["images"] = int(len(xte))
+    return model_fn, to_model, xte, yte
+
+
+def _timed(stats: dict, key: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; its wall seconds into ``stats[key]``, the
+    card's queued work included."""
+    import time
+
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    if torch.device(kwargs["device"]).type == "cuda":
+        torch.cuda.synchronize()
+    stats[key] = time.perf_counter() - t0
+    return out
+
+
+def cmd_sweep(argv):
+    from imagetransformations_tpu_torch.evalx import report
+    from imagetransformations_tpu_torch.evalx.harness import corruption_sweep
+    from imagetransformations_tpu_torch.utils.config import SweepConfig
+
+    cfg = SweepConfig.from_cli(argv)
+    if cfg.data_parallel:
+        raise SystemExit("--data-parallel is not ported to imagetransformations_tpu_torch: "
+                         "ROADMAP A.9 (multi-device)")
+    device = _option(argv, "device", "cuda")
+    stats: dict = {}
+    model_fn, to_model, xte, yte = _demo(argv, stats)
+    metrics = tuple(cfg.metrics.split(","))
+    sweep = _timed(stats, "sweep_s", corruption_sweep, model_fn, to_model, xte, yte,
+                   seed=int(_option(argv, "seed", "0")),
+                   severities=tuple(range(1, cfg.severities + 1)), metric_names=metrics,
+                   batch_size=cfg.batch_size, device=device)
+    stats["cells"] = sum(len(v) for v in sweep.values())
+    print(report.format_table(report.summary_table(sweep)))
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    with open(os.path.join(cfg.out_dir, "sweep.json"), "w") as fh:
+        json.dump({n: {str(s): r for s, r in v.items()} for n, v in sweep.items()}, fh, indent=1)
+    if report.matplotlib_available():
+        for m in metrics:
+            report.plot_severity_aucs(sweep, m, os.path.join(cfg.out_dir, f"auc_{m}.png"))
+        print(f"sweep.json and plots in {cfg.out_dir}")
+    else:
+        print(f"sweep.json in {cfg.out_dir}; matplotlib is not installed: no PNG written")
+    _print_stats(argv, stats)
+
+
+def cmd_report(argv):
+    from imagetransformations_tpu_torch.utils.config import SweepConfig
+    from imagetransformations_tpu_torch.workflows import uncertainty_report
+
+    cfg = SweepConfig.from_cli(argv)
+    device = _option(argv, "device", "cuda")
+    stats: dict = {}
+    model_fn, to_model, xte, yte = _demo(argv, stats)
+    res = _timed(stats, "report_s", uncertainty_report, model_fn, to_model, xte, yte,
+                 out_dir=cfg.out_dir, device=device)
+    print(f"accuracy: {res['accuracy']:.4f}")
+    for m, row in res["thresholds"].items():
+        print(f"  {m:>18s}: auroc={row['auroc']:.4f} threshold={row['threshold']:.4f}")
+    if res["plots"]:
+        print(f"histograms in {cfg.out_dir}")
+    else:
+        print("matplotlib is not installed: no PNG written")
+    _print_stats(argv, stats)
 
 
 _COMMANDS = {
     "transform": cmd_transform,
     "chain": cmd_chain,
     "corrupt": cmd_corrupt,
-    **{name: _not_ported(name) for name in _NOT_PORTED},
+    "sweep": cmd_sweep,
+    "report": cmd_report,
 }
 
 

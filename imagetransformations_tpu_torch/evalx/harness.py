@@ -1,18 +1,28 @@
-"""The corruption dispatch of the evaluation harness (PyTorch).
+"""Corruption-sweep evaluation harness (PyTorch): corruptions x severities
+x metrics.
 
-Counterpart of ``imagetransformations_tpu/evalx/harness.py:38-163``:
-``CORRUPTIONS`` (the reference's 15 canonical CIFAR-10-C corruptions,
-attacks/uncertainty/FINAL_cifar_corrupted.py:22-27, in its order),
-``EXTRA_CORRUPTIONS`` (the store's four more, and the sweep-only
-rotation and translation) and ``corrupt``, with the JAX package's names,
-order and severity values. Every corruption is generated on the device
-(``ops.corruptions``); ``rotation`` on a u8 batch on the card runs the
-hand-written NEAREST rotation kernel (``csrc/rotate_nearest.cu``).
+Counterpart of ``imagetransformations_tpu/evalx/harness.py``:
+- ``CORRUPTIONS`` (the reference's 15 canonical CIFAR-10-C corruptions,
+  attacks/uncertainty/FINAL_cifar_corrupted.py:22-27, in its order),
+  ``EXTRA_CORRUPTIONS`` (the store's four more, and the sweep-only rotation
+  and translation) and ``corrupt``, with the JAX package's names, order and
+  severity values. Every corruption is generated on the device
+  (``ops.corruptions``); ``rotation`` on a u8 batch on the card runs the
+  hand-written NEAREST rotation kernel (``csrc/rotate_nearest.cu``).
+- ``evaluate_batched``: one forward over fixed-size batches (the last one
+  padded by repeating its last row, the padded logits dropped), then the
+  accuracy and every per-sample metric.
+- ``corruption_sweep`` (FINAL_cifar_corrupted.py): per (corruption,
+  severity) cell the accuracy and the error-detection AUROC of each metric,
+  with ``uq_extras`` also ODIN's and the Mahalanobis distance's
+  (FINAL_cifar_corrupted.py:237-262). Each cell draws from its own
+  generator, seeded from (``seed``, the cell) as the ``corrupt`` CLI's.
+- ``analyze_uncertainty_thresholds`` (pipeline/cifar_iterative_mc.py:
+  174-219): the threshold by Youden's J and the flagged counts per metric.
 
-Not ported yet (ROADMAP A.6): ``corruption_sweep``, the uncertainty
-metrics, ``evaluate_batched``, ``analyze_uncertainty_thresholds`` and the
-forward caches; they need the port's models (A.4) and uncertainty
-modules (A.5).
+Everything runs on one device. Not ported yet (ROADMAP A.9):
+``evaluate_sharded`` and the sweep's ``mesh=`` path, which raise. The JAX
+package's jit caches have no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -22,9 +32,14 @@ from typing import Callable
 import numpy as np
 import torch
 
+from imagetransformations_tpu_torch.core.image import entry_device, to_device
 from imagetransformations_tpu_torch.ops import corruptions as cr
 from imagetransformations_tpu_torch.ops import noise as nz
 from imagetransformations_tpu_torch.ops import warp as wp
+from imagetransformations_tpu_torch.uq import mahalanobis as _maha
+from imagetransformations_tpu_torch.uq import metrics as um
+from imagetransformations_tpu_torch.uq.calibration import auroc, youden_threshold
+from imagetransformations_tpu_torch.uq.odin import odin_uncertainty
 
 
 def _elastic(x, v, g, **draws):
@@ -194,3 +209,212 @@ def numpy_draws(images_u8: np.ndarray, name: str, severity: int,
     if name == "spatter":
         return {"g_noise": normal(n, h, w)}
     return {}
+
+
+def corruption_generator(seed: int, name: str, severity: int,
+                         device: torch.device) -> torch.Generator:
+    """The generator of one (corruption, severity) cell: seeded from
+    (``seed``, the cell's place in the fixed table of every known
+    corruption x severities 1-5), so a cell draws the same numbers whichever
+    other cells a run asks for."""
+    cell = [*CORRUPTIONS, *EXTRA_CORRUPTIONS].index(name) * 5 + severity - 1
+    state = np.random.SeedSequence([int(seed), cell]).generate_state(1, dtype=np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+DEFAULT_METRICS: tuple[str, ...] = (
+    "shannon_entropy", "msp", "least_confidence", "margin", "ratio",
+    "max_logit", "energy", "doctor_alpha", "doctor_beta",
+)
+
+
+def _batches(images_u8: torch.Tensor, batch_size: int):
+    """Fixed-size batches of ``images_u8``, the last padded by repeating its
+    last row; yields (batch, number of real rows)."""
+    n = int(images_u8.shape[0])
+    bs = min(int(batch_size), n)
+    for i in range(0, n, bs):
+        xb = images_u8[i: i + bs]
+        real = int(xb.shape[0])
+        if real < bs:
+            xb = torch.cat([xb, xb[-1:].expand(bs - real, *xb.shape[1:])])
+        yield xb, real
+
+
+def _forward_all(model_fn, to_model_space, images_u8: torch.Tensor, batch_size: int):
+    """Logits of the whole dataset, batch by batch (no autograd)."""
+    out = []
+    with torch.no_grad():
+        for xb, real in _batches(images_u8, batch_size):
+            out.append(model_fn(to_model_space(xb))[:real])
+    return torch.cat(out)
+
+
+def _forward_uq_all(model_fn, feats_logits_fn, to_model_space, images_u8: torch.Tensor,
+                    batch_size: int, odin_temperature: float = 1000.0,
+                    odin_eps: float = 0.0014):
+    """(logits, penultimate features, ODIN uncertainty) of the whole dataset:
+    per batch the feature forward, then ODIN's input-gradient backward and
+    its perturbed forward at temperature T (the reference computes ODIN
+    beside the logit metrics, FINAL_cifar_corrupted.py:237-262)."""
+    lg, ft, od = [], [], []
+    for xb, real in _batches(images_u8, batch_size):
+        xm = to_model_space(xb)
+        with torch.no_grad():
+            feats, logits = feats_logits_fn(xm)
+        u = odin_uncertainty(model_fn, xm, float(odin_temperature), float(odin_eps))
+        lg.append(logits[:real])
+        ft.append(feats[:real])
+        od.append(u[:real])
+    return torch.cat(lg), torch.cat(ft), torch.cat(od)
+
+
+def _finalize_eval(logits, labels, metric_names):
+    with torch.no_grad():
+        correct = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
+        metrics = {m: um.LOGIT_METRICS[m](logits) for m in metric_names}
+    return {"accuracy": float(torch.mean(correct)), "correct": correct, "logits": logits,
+            "metrics": metrics}
+
+
+def evaluate_batched(
+    model_fn: Callable[[torch.Tensor], torch.Tensor],
+    to_model_space: Callable[[torch.Tensor], torch.Tensor],
+    images_u8,
+    labels,
+    batch_size: int = 256,
+    metric_names: tuple[str, ...] = DEFAULT_METRICS,
+    device: str | torch.device | None = None,
+):
+    """Accuracy and per-sample metric tensors over a dataset: ``model_fn``
+    (model space -> logits) after ``to_model_space`` (u8 NHWC batch -> model
+    space) over fixed batches of ``batch_size``, then one finalize. Returns
+    ``{"accuracy": float, "correct": [N], "logits": [N, C], "metrics": {name:
+    [N]}}`` on ``device`` (None means "cuda", which raises without a GPU).
+    ``images_u8`` and ``labels`` are numpy arrays or tensors."""
+    dev = entry_device(device, "evaluate_batched")
+    x, y = to_device(images_u8, dev), to_device(labels, dev)
+    return _finalize_eval(_forward_all(model_fn, to_model_space, x, batch_size), y,
+                          metric_names)
+
+
+def evaluate_sharded(*args, **kwargs):
+    """The JAX package's data-parallel ``evaluate_batched`` over a device
+    mesh: not ported (ROADMAP A.9, multi-device)."""
+    raise NotImplementedError(
+        "evaluate_sharded is not ported: ROADMAP A.9 (multi-device); use evaluate_batched")
+
+
+def _error_aurocs(logits, labels, metric_names):
+    """(accuracy, errors, AUROC of each metric against the errors): the
+    confidence metrics are negated so that higher means more likely wrong."""
+    correct = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
+    errors = 1.0 - correct
+    aucs = []
+    for m in metric_names:
+        score = um.LOGIT_METRICS[m](logits)
+        aucs.append(auroc(-score if m in um.CONFIDENCE_METRICS else score, errors))
+    return torch.mean(correct), errors, aucs
+
+
+def corruption_sweep(
+    model_fn,
+    to_model_space,
+    clean_images_u8,
+    labels,
+    seed: int = 0,
+    corruption_names: tuple[str, ...] | None = None,
+    severities: tuple[int, ...] = (1, 2, 3, 4, 5),
+    batch_size: int = 256,
+    metric_names: tuple[str, ...] = ("shannon_entropy", "msp", "margin", "energy"),
+    mesh=None,
+    mesh_axis: str = "data",
+    uq_extras: dict | None = None,
+    cell_draws: Callable[[str, int], dict] | None = None,
+    device: str | torch.device | None = None,
+):
+    """FINAL_cifar_corrupted-style sweep -> ``result[corruption][severity] =
+    {"accuracy": float, "auroc": {metric: float}}``; the AUROC targets error
+    detection (the metric against "the prediction is wrong").
+
+    Each cell corrupts the clean set with ``corrupt`` and its own generator,
+    ``corruption_generator(seed, name, severity)``, or, with ``cell_draws``,
+    with the explicit draws ``cell_draws(name, severity)`` returns (the
+    keywords of ``corrupt``, e.g. from ``numpy_draws``: the same randomness on
+    every device); then one ``evaluate_batched`` forward and the cell's
+    statistics.
+
+    ``uq_extras`` adds ODIN's and the Mahalanobis distance's AUROC columns
+    ("odin", "mahalanobis"; FINAL_cifar_corrupted.py:237-262): a dict with
+    ``feats_logits_fn`` (model space -> (penultimate features, logits)),
+    ``maha_mean`` / ``maha_precision`` (a clean-feature fit,
+    ``uq.mahalanobis.fit``) and optionally ``odin_temperature`` /
+    ``odin_eps`` (1000 / 0.0014, uncertainty_metrics.py:69-94).
+
+    Runs on ``device`` (None means "cuda", which raises without a GPU).
+    ``mesh`` (the JAX package's multi-device sweep) is not ported (ROADMAP
+    A.9) and raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "corruption_sweep(mesh=...) is not ported: ROADMAP A.9 (multi-device)")
+    dev = entry_device(device, "corruption_sweep")
+    x, y = to_device(clean_images_u8, dev), to_device(labels, dev)
+    names = corruption_names or tuple(CORRUPTIONS)
+    metric_names = tuple(metric_names)
+    if uq_extras is not None:
+        state = _maha.MahalanobisState(to_device(uq_extras["maha_mean"], dev),
+                                       to_device(uq_extras["maha_precision"], dev))
+        odin_t = uq_extras.get("odin_temperature", 1000.0)
+        odin_e = uq_extras.get("odin_eps", 0.0014)
+    out: dict = {}
+    for name in names:
+        out[name] = {}
+        for sev in severities:
+            if cell_draws is None:
+                imgs = corrupt(x, name, sev, corruption_generator(seed, name, sev, dev))
+            else:
+                imgs = corrupt(x, name, sev, None, **{
+                    k: to_device(v, dev) for k, v in cell_draws(name, sev).items()})
+            if uq_extras is None:
+                logits = _forward_all(model_fn, to_model_space, imgs, batch_size)
+                cols = metric_names
+            else:
+                logits, feats, od = _forward_uq_all(
+                    model_fn, uq_extras["feats_logits_fn"], to_model_space, imgs,
+                    batch_size, odin_t, odin_e)
+                cols = metric_names + ("odin", "mahalanobis")
+            with torch.no_grad():
+                acc, errors, aucs = _error_aurocs(logits, y, metric_names)
+                if uq_extras is not None:
+                    aucs += [auroc(od, errors), auroc(_maha.score(state, feats), errors)]
+                aucs_np = torch.stack(aucs).cpu().numpy() if aucs else np.zeros(0, np.float32)
+            out[name][sev] = {"accuracy": float(acc),
+                              "auroc": {m: float(a) for m, a in zip(cols, aucs_np)}}
+    return out
+
+
+def analyze_uncertainty_thresholds(
+    metrics: dict[str, torch.Tensor], correct: torch.Tensor
+) -> dict[str, dict]:
+    """Optimal threshold by Youden's J and the flagged counts per metric
+    (cifar_iterative_mc.py:174-219, roc_curve -> argmax(tpr - fpr)); the
+    targets are the misclassifications. A confidence metric is negated for
+    the search and its threshold reported in its own sign."""
+    out = {}
+    with torch.no_grad():
+        errors = 1.0 - correct.to(torch.float32)
+        for name, score in metrics.items():
+            sign = -1.0 if name in um.CONFIDENCE_METRICS else 1.0
+            s = -score if sign < 0 else score
+            t = youden_threshold(s, errors)
+            flagged = (s > t).to(torch.float32)
+            n_flag = torch.sum(flagged)
+            out[name] = {
+                "threshold": float(t * sign),
+                "auroc": float(auroc(s, errors)),
+                "n_flagged": int(n_flag),
+                "flagged_error_rate": float(torch.sum(errors * flagged)
+                                            / torch.clamp(n_flag, min=1.0)),
+            }
+    return out

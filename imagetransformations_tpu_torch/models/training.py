@@ -1,0 +1,102 @@
+"""Training loops (PyTorch): supervised steps, ensembles, the BNN ELBO.
+
+Counterpart of ``imagetransformations_tpu/models/training.py:23-110``:
+- ensemble.py:49-77      -> train_members (M independent inits and fits)
+- baysian.py:137-158     -> make_elbo_step (CE(sum) + kl_weight * KL, Adam)
+- swag/cifar_swag.py:137-166 -> swag_collect, which waits for the port's
+  ``uq/swag`` (ROADMAP A.5) and raises.
+
+The JAX steps are pure functions of (params, batch_stats, opt_state); here
+a step updates the module and its optimizer in place and returns the
+batch's numbers. Training-mode BatchNorm follows flax's rule (the biased
+batch variance in the running statistics, ``models._layers.BatchNorm``),
+so a step from carried weights moves the statistics as the JAX step does.
+The loss reduction is f32. A step's forward and backward both run inside
+``full_f32``: cuDNN's convolution backward reads the TF32 flag when the
+backward runs, so a scope around the forward alone leaves the gradients in
+TF32 under the caller's default flags.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from imagetransformations_tpu_torch.core.precision import full_f32
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer) -> Callable:
+    """Standard CE step: ``step(x, y) -> (loss, accuracy)`` (0-dim tensors),
+    the forward in training mode (``model(x, True)``). After a step each
+    parameter's ``.grad`` holds the batch's gradient."""
+
+    def step(x: torch.Tensor, y: torch.Tensor):
+        optimizer.zero_grad(set_to_none=True)
+        with full_f32():
+            logits = model(x, True).to(torch.float32)
+            loss = F.cross_entropy(logits, y.long())
+            loss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            acc = torch.mean((torch.argmax(logits, -1) == y).to(torch.float32))
+        return loss.detach(), acc
+
+    return step
+
+
+def fit(model: nn.Module, data_iter: Iterable, epochs: int = 1, lr: float = 1e-3) -> nn.Module:
+    """Minimal fit loop: Adam(lr) over ``data_iter``'s (x, y) batches for
+    ``epochs`` (``data_iter`` is iterated once an epoch); returns ``model``.
+    The JAX ``fit`` also initializes from a key: here the caller builds the
+    module (``train_members`` seeds it)."""
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=lr))
+    for _ in range(epochs):
+        for x, y in data_iter:
+            step(x, y)
+    return model
+
+
+def train_members(
+    make_model: Callable[[], nn.Module], num_members: int,
+    data_iter_fn: Callable[[], Iterable], epochs: int = 1, lr: float = 1e-3,
+    seed: int = 0,
+) -> list[nn.Module]:
+    """Deep ensemble (ensemble.py:49-77): member m is ``make_model()`` built
+    under ``torch.manual_seed(seed + m)`` (the process's generators restored
+    after), then fit on ``data_iter_fn()``."""
+    members = []
+    for m in range(num_members):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed + m)
+            model = make_model()
+        members.append(fit(model, data_iter_fn(), epochs, lr))
+    return members
+
+
+def make_elbo_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                   kl_weight: float) -> Callable:
+    """Bayes-by-backprop step (baysian.py:137-158): ``step(x, y, generator)
+    -> (ce, kl)``, minimizing CE summed over the batch + ``kl_weight`` * KL,
+    the weight noise drawn from ``generator``."""
+    from imagetransformations_tpu_torch.models.bayesian import kl_loss
+
+    def step(x: torch.Tensor, y: torch.Tensor, generator: torch.Generator | None = None):
+        optimizer.zero_grad(set_to_none=True)
+        with full_f32():
+            logits = model(x, True, generator)
+            ce = F.cross_entropy(logits, y.long(), reduction="sum")
+            kl = kl_loss(model)
+            (ce + kl_weight * kl).backward()
+        optimizer.step()
+        return ce.detach(), kl.detach()
+
+    return step
+
+
+def swag_collect(*args, **kwargs):
+    """SWAG collection (cifar_swag.py:137-166): SGD steps with a SWAG moment
+    update each batch. Waits for the port's ``uq/swag`` (ROADMAP A.5)."""
+    raise NotImplementedError("swag_collect waits for the port's uq/swag: ROADMAP A.5")

@@ -8,9 +8,12 @@ Counterpart of ``imagetransformations_tpu/workflows.py``. Ported so far:
   op-chain -> save.
 - ``corrupt_folder``    <- the JAX CLI's ``corrupt`` command: folder -> the
   CIFAR-10-C store's corruptions at severities 1-5 -> PNGs.
+- ``uncertainty_report`` <- pipeline/cifar10_histogram4.py and the
+  pipeline/metrics/ scripts: every logit metric, its AUROC and Youden
+  threshold, and histogram PNGs.
 
-The research workflows (uncertainty report, refinement, TENT, SWAG) wait
-for the port's models and evaluation modules (ROADMAP A.4-A.8).
+The other research workflows (refinement, TENT, SWAG) wait for the port's
+attacks, adaptation and SWAG modules (ROADMAP A.5, A.7, A.8).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from imagetransformations_tpu_torch.core.image import entry_device
+from imagetransformations_tpu_torch.evalx.harness import corruption_generator
 
 
 class _Stages:
@@ -187,19 +191,6 @@ STORE_CORRUPTIONS = (
 )
 
 
-def corruption_generator(seed: int, name: str, severity: int,
-                         device: torch.device) -> torch.Generator:
-    """The generator of one (corruption, severity) cell: seeded from
-    (``seed``, the cell's place in the fixed table of every known
-    corruption x severities 1-5), so a cell draws the same numbers whichever
-    other cells a run asks for."""
-    from imagetransformations_tpu_torch.evalx.harness import CORRUPTIONS, EXTRA_CORRUPTIONS
-
-    cell = [*CORRUPTIONS, *EXTRA_CORRUPTIONS].index(name) * 5 + severity - 1
-    state = np.random.SeedSequence([int(seed), cell]).generate_state(1, dtype=np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
-
-
 def _unique_stems(paths: list[str], in_dir: str) -> list[str]:
     """A stem an input from its in_dir-relative path (separators -> '_'),
     a duplicate suffixed ``_1``, ``_2``, ... (the JAX CLI's rule)."""
@@ -259,3 +250,36 @@ def corrupt_folder(
 
             stages.timed("encode", write)
     return written
+
+
+def uncertainty_report(
+    model_fn, to_model_space, images_u8, labels, out_dir: str | None = None,
+    metric_names=("shannon_entropy", "msp", "margin", "ratio", "energy",
+                  "doctor_alpha", "doctor_beta", "max_logit", "least_confidence"),
+    device: str | torch.device | None = None,
+):
+    """Every listed logit metric, its AUROC and Youden threshold for error
+    detection (``evaluate_batched``, ``analyze_uncertainty_thresholds``), and
+    with ``out_dir`` a histogram PNG per metric. Returns ``{"accuracy",
+    "thresholds", "metrics", "plots"}``: ``plots`` lists the PNGs written,
+    none where matplotlib is missing. Runs on ``device`` (None means
+    "cuda", which raises without a GPU)."""
+    from imagetransformations_tpu_torch.evalx import report
+    from imagetransformations_tpu_torch.evalx.harness import (
+        analyze_uncertainty_thresholds,
+        evaluate_batched,
+    )
+
+    res = evaluate_batched(model_fn, to_model_space, images_u8, labels,
+                           metric_names=tuple(metric_names), device=device)
+    table = analyze_uncertainty_thresholds(res["metrics"], res["correct"])
+    plots = []
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        if report.matplotlib_available():
+            for m, score in res["metrics"].items():
+                plots.append(report.plot_uncertainty_histogram(
+                    score, res["correct"] > 0.5, threshold=table[m]["threshold"], title=m,
+                    out_path=os.path.join(out_dir, f"{m}.png")))
+    return {"accuracy": res["accuracy"], "thresholds": table, "metrics": res["metrics"],
+            "plots": plots}

@@ -10,8 +10,8 @@ chain, whose blur is cv2's and rotation PIL's: <= 2 LSB on <= 10%,
 measured 1 LSB on 7.7%); the files equal PIL's encoding of that array, byte
 for byte, and the JAX CLI's files where the arrays are equal. The commands
 run with ``--device=cpu``; the default is the card, and without one they
-fail. ``sweep`` and ``report`` are not ported and exit naming their
-ROADMAP item (``corrupt``: tests/test_torch_cli_corrupt.py).
+fail. ``sweep`` and ``report`` run in tests/test_torch_cli_sweep.py,
+``corrupt`` in tests/test_torch_cli_corrupt.py.
 """
 
 import io
@@ -133,9 +133,18 @@ def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("cmd,item", [("sweep", "A.6"), ("report", "A.6")])
-def test_unported_commands_name_their_roadmap_item(cmd, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        main([cmd, "in", "out"])
+def test_unported_commands_name_their_roadmap_item(cmd, item, tmp_path, monkeypatch):
+    """The commands of ROADMAP {item} are ported: they no longer exit naming
+    it, and run on the card by default (without one they fail); what is
+    left of them, the sweep's --data-parallel, names ROADMAP A.9
+    (tests/test_torch_cli_sweep.py runs both commands)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [cmd, f"--data-root={tmp_path}", f"--out-dir={tmp_path / 'out'}"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    if cmd == "sweep":
+        with pytest.raises(SystemExit, match="ROADMAP A.9"):
+            main(argv + ["--data-parallel=true", "--device=cpu"])
 
 
 def test_cli_unknown_command_and_help(capsys):

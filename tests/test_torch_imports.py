@@ -51,7 +51,11 @@ def test_port_files_found():
     assert "imagetransformations_tpu_torch/ops/elementwise.py" in names
     assert "imagetransformations_tpu_torch/ops/noise.py" in names
     for module in ("pipeline/io.py", "pipeline/native_io.py", "pipeline/datasets.py",
-                   "workflows.py", "__main__.py", "utils/config.py"):
+                   "workflows.py", "__main__.py", "utils/config.py", "core/precision.py",
+                   "models/resnet.py", "models/simple_cnn.py", "models/bayesian.py",
+                   "models/imagenet.py", "models/convert.py", "models/training.py",
+                   "uq/metrics.py", "uq/calibration.py", "uq/mahalanobis.py", "uq/odin.py",
+                   "evalx/harness.py", "evalx/report.py", "utils/demo.py"):
         assert f"imagetransformations_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 
@@ -117,6 +121,23 @@ with tempfile.TemporaryDirectory() as d:
     assert io.load_folder_images(d)[1] == []
     assert native_io.load_folder_images_native(d, (8, 8))[1] == []
 assert [o.name for o in cli.parse_ops("blur:1.5,grayscale")] == ["blur", "grayscale"]
+from imagetransformations_tpu_torch import models, uq
+from imagetransformations_tpu_torch.evalx import harness, report
+from imagetransformations_tpu_torch.models import training
+from imagetransformations_tpu_torch.uq import calibration, mahalanobis, odin
+from imagetransformations_tpu_torch.utils import demo
+net = models.CifarResNet((1, 1, 1), device="cpu")
+assert models.load_torch_state_dict(models.CifarResNet((1, 1, 1), device="cpu"),
+                                   net.state_dict())
+space = models.resnet.cifar_model_space
+res = harness.evaluate_batched(net, space, x[:, :32, :32], np.zeros(1, np.int32), device="cpu")
+assert 0.0 <= res["accuracy"] <= 1.0 and sorted(res["metrics"]) == sorted(harness.DEFAULT_METRICS)
+sweep = harness.corruption_sweep(net, space, x[:, :32, :32], np.zeros(1, np.int32),
+                                 corruption_names=("rotation",), severities=(1,), device="cpu")
+assert report.summary_table(sweep)[0]["corruption"] == "rotation"
+assert float(calibration.auroc(torch.tensor([0.1, 0.9]), torch.tensor([0.0, 1.0]))) == 1.0
+assert training.make_train_step and odin.odin_score and mahalanobis.fit and demo.get_data
+assert uq.shannon_entropy(torch.zeros(1, 4)).shape == (1,)
 print("ok")
 """
     env = dict(os.environ)
