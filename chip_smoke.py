@@ -58,7 +58,17 @@ ResNet-20, ODIN's input gradient) with TF32 on bit-equal to off, runs
 a demo-trained ResNet-20 over 10000 synthetic images, the 15 canonical
 corruptions and ``rotation`` (kernel #12) at severities 1-5, holds the
 same cells on 64 images to the CPU's (numpy draws), and times the
-``sweep`` and ``report`` commands in process. Both phases run under the
+``sweep`` and ``report`` commands in process. Then phase ``swag`` runs
+``workflows.swag_pipeline`` on a seeded ResNet-56 (the reference's
+cifar_swag.py: 200 SGD collection steps of 128 synthetic images, rank 20,
+30 weight samples, the BMA of 10 over 10 000 test images: ms a step,
+``sample_many`` ms, BMA s against the forwards' bound, peak memory) and
+holds 4 steps on 64 images to the CPU's with the same draws; and phase
+``refine`` runs ``workflows.refinement_pipeline`` on the demo ResNet-20
+over 10 000 synthetic images (also with the clip at the model space's
+range), FGSM, reverse FGSM, PGD and ``minimal_epsilon`` in pixel space,
+kNN and Laplace on the features of 50 000 x 10 000 images, each timed,
+and holds each to the CPU on 64 images. These four phases run under the
 flags a user has by default, TF32 on for cuDNN (here cuBLAS's too), so the
 port's scoped true f32 (``core.precision.full_f32``) is what holds their
 results to the CPU's; the rest of the script runs with TF32 off.
@@ -1534,6 +1544,407 @@ def sweep_cli_rows(torch, mk) -> list:
     return rows
 
 
+# phases swag and refine: the CIFAR-10 sets' sizes (synthetic images), the
+# images the CPU recomputes, and the reference's settings
+UQ_TRAIN_IMAGES, UQ_TEST_IMAGES, UQ_CPU_IMAGES = 50000, 10000, 64
+# cifar_swag.py collects for 50 epochs of 391 steps; cut to 200 steps
+SWAG_STEPS, SWAG_BATCH, SWAG_RANK, SWAG_LR = 200, 128, 20, 1e-4
+SWAG_SAMPLES, SWAG_EVAL_SAMPLES, SWAG_CPU_STEPS, SWAG_CPU_SAMPLES = 30, 10, 4, 3
+REFINE_EPS, REFINE_ITERS, REFINE_MSP_STOP = 0.03, 10, 0.998
+ATTACK_EPS, PGD_ALPHA, PGD_STEPS = 8 / 255, 2 / 255, 10
+KNN_K, LAPLACE_SAMPLES = 10, 30
+# card against CPU. The SWAG mean's max |d| over the largest |mean|: the
+# training steps of a random-init ResNet-56 are ill-conditioned in f32 (on
+# the CPU alone, 1 against 8 threads moves the 4-step mean by 5.1e-6, 1.6%
+# of its largest movement), so 1e-4, not 1e-5. The BMA's probabilities and
+# entropies (nats), max |d|: 1e-4 from one SWAG state and weights on both
+# devices; end to end 5e-3 (each device collects its own, and SWAG's
+# variances at lr 1e-4 are differences of nearly equal moments: the CPU
+# alone, 1 against 8 threads, differs by 1.9e-4 / 1.1e-4). The Laplace
+# outputs' max |d| over the tensor's max |value|. FGSM's and reverse
+# FGSM's values allowed to differ (a gradient sign near 0). In images:
+# PGD's 10 steps carry one differing sign through every later step of that
+# image, so PGD is held by its accuracy; ``minimal_epsilon`` gives one level
+# an image, and one differing sign can move an image that sits at a level's
+# edge (1 of 64 in log call 6). Flip counts.
+SWAG_MEAN_REL, BMA_ABS, BMA_E2E_ABS = 1e-4, 1e-4, 5e-3
+LAPLACE_REL, ATTACK_SHARE, ATTACK_IMAGES, FLIP_COUNT = 1e-4, 1e-3, 2, 1
+
+
+def once_ms(torch, fn):
+    """(ms, result) of one fn() call: CUDA events around it, synchronized."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def reset_launches(mk) -> None:
+    for k in mk.LAUNCHES:
+        mk.LAUNCHES[k] = 0
+
+
+def scaled_err(got: dict, want: dict) -> float:
+    """Largest over the tensors of max |got - want| / max |want|."""
+    return max(float((g.cpu() - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-30)
+               for k, g in got.items())
+
+
+def swag_phase(torch, mk, xtr, ytr, xte) -> dict:
+    """``workflows.swag_pipeline`` on the card, the reference's
+    attacks/cifar10-unvertainty/swag/cifar_swag.py on its ResNet-56 at full
+    width from a seeded init (no pretrained weights in the repository):
+    ``swag_collect`` (SGD lr 1e-4, momentum 0.9, batch 128, rank 20, an
+    update a step) for 200 steps over synthetic CIFAR-shaped images (the
+    reference: 50 epochs of 391), 30 weight samples, the first 10 of them
+    in ``bma_logits`` over 10 000 test images. Wall s of the whole call,
+    collection ms a step (the host clock, synchronized when the batches run
+    out), then ``sample_many`` ms and the BMA's ms against 10 forwards'
+    bound (multiply-adds over the f32 FMA rate), both with CUDA events on
+    the collected state; peak device memory; the kernels' launches (none
+    expected). Then card against CPU: 4 collection steps on the same 64
+    images, the same explicit draws, BMA on those 64: the SWAG mean within
+    1e-4 of the largest mean, the BMA's probabilities and entropies within
+    1e-4 when the CPU samples from the card's state and weights, within
+    5e-3 end to end, nothing NaN. Fails otherwise (after printing the
+    row)."""
+    import copy
+
+    from imagetransformations_tpu_torch import workflows as wf
+    from imagetransformations_tpu_torch.models.resnet import cifar_model_space
+    from imagetransformations_tpu_torch.uq import mc as umc
+    from imagetransformations_tpu_torch.uq import swag
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        cpu_model = make_model("resnet56", "cpu")
+    model = copy.deepcopy(cpu_model).cuda()
+    n = SWAG_STEPS * SWAG_BATCH
+    xtr_d, ytr_d = torch.from_numpy(xtr[:n]).cuda(), torch.from_numpy(ytr[:n]).long().cuda()
+    x_eval = cifar_model_space(torch.from_numpy(xte).cuda())
+    collect = {}
+
+    def train_iter():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(SWAG_STEPS):
+            s = slice(i * SWAG_BATCH, (i + 1) * SWAG_BATCH)
+            yield cifar_model_space(xtr_d[s]), ytr_d[s]
+        torch.cuda.synchronize()  # the last step and its update have run
+        collect["s"] = time.perf_counter() - t0
+
+    reset_launches(mk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = wf.swag_pipeline(model, train_iter, x_eval, torch.Generator(device="cuda").manual_seed(SEED),
+                           num_weight_samples=SWAG_SAMPLES, eval_mc_samples=SWAG_EVAL_SAMPLES,
+                           max_rank=SWAG_RANK, lr=SWAG_LR, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in mk.LAUNCHES.items() if v}
+    state = out["swag_state"]
+    m = UQ_TEST_IMAGES
+    if (tuple(out["probs"].shape) != (m, 10) or state.n_models != SWAG_STEPS
+            or not all(bool(torch.isfinite(out[k]).all())
+                       for k in ("probs", "entropy", "one_minus_max", "jsd", "variance"))
+            or float(out["variance"].min()) < 0.0):
+        fail(f"swag: bad pipeline output (n_models {state.n_models})")
+    sample_ms, stacked = once_ms(torch, lambda: swag.sample_many(
+        state, SWAG_SAMPLES, torch.Generator(device="cuda").manual_seed(SEED)))
+    take = {k: v[:SWAG_EVAL_SAMPLES] for k, v in stacked.items()}
+    bma_ms, logits = once_ms(torch, lambda: swag.bma_logits(model, take, x_eval))
+    if not bool(torch.isfinite(logits).all()):
+        fail("swag: non-finite BMA logits")
+    bound = macs_per_image(torch, model, x_eval[:1]) * m / F32_FMA_PER_S * 1e3
+    del stacked, take, logits, xtr_d, ytr_d
+    # the card against the CPU on the same 64 images: 4 collection steps and
+    # the same draws on each; then sampling and BMA on the CPU from the
+    # card's state and weights
+    k = UQ_CPU_IMAGES
+    x64 = cifar_model_space(torch.from_numpy(xtr[:k]))
+    y64 = torch.from_numpy(ytr[:k]).long()
+    draws = [swag.draw(swag.init(cpu_model, SWAG_RANK), torch.Generator().manual_seed(SEED + s))
+             for s in range(SWAG_CPU_SAMPLES)]
+
+    def on(dev, d):
+        return {"z_low": d["z_low"].to(dev), "z_diag": {n: v.to(dev) for n, v in d["z_diag"].items()}}
+
+    def small(net, dev):
+        xs, ys = x64.to(dev), y64.to(dev)
+        return wf.swag_pipeline(net, lambda: [(xs, ys)] * SWAG_CPU_STEPS, xs,
+                                num_weight_samples=SWAG_CPU_SAMPLES,
+                                eval_mc_samples=SWAG_CPU_SAMPLES, max_rank=SWAG_RANK, lr=SWAG_LR,
+                                draws=[on(dev, d) for d in draws], device=dev)
+
+    card_net = copy.deepcopy(cpu_model).cuda()
+    card = small(card_net, "cuda")
+    t0 = time.perf_counter()
+    cpu = small(copy.deepcopy(cpu_model), "cpu")
+    cs = card["swag_state"]
+    same_state = swag.SwagState(*({n: v.cpu() for n, v in getattr(cs, f).items()}
+                                  for f in ("mean", "sq_mean", "deviations")),
+                                cs.n_models, cs.max_rank)
+    logits = swag.bma_logits(copy.deepcopy(card_net).cpu(),
+                             swag.sample_many(same_state, SWAG_CPU_SAMPLES, draws=draws), x64)
+    same = {"probs": torch.mean(torch.softmax(logits, -1), 0),
+            "entropy": umc.predictive_entropy(logits, base2=False)}
+    cpu_s = time.perf_counter() - t0
+    scale = max(float(v.abs().max()) for v in cpu["swag_state"].mean.values())
+    mean_err = max(float((cs.mean[n].cpu() - v).abs().max())
+                   for n, v in cpu["swag_state"].mean.items()) / scale
+    e2e = {n: float((card[n].cpu() - cpu[n]).abs().max()) for n in ("probs", "entropy")}
+    same_err = {n: float((card[n].cpu() - same[n]).abs().max()) for n in ("probs", "entropy")}
+    nan = any(bool(torch.isnan(card[n]).any())
+              for n in ("probs", "entropy", "one_minus_max", "jsd", "variance"))
+    row = {"phase": "swag", "model": "resnet56", "steps": SWAG_STEPS, "batch": SWAG_BATCH,
+           "max_rank": SWAG_RANK, "lr": SWAG_LR, "weight_samples": SWAG_SAMPLES,
+           "bma_samples": SWAG_EVAL_SAMPLES, "eval_images": m, "wall_s": wall,
+           "collect_ms_per_step": collect["s"] * 1e3 / SWAG_STEPS,
+           "sample_many_ms": sample_ms, "bma_s": bma_ms / 1e3,
+           "bma_ms_per_sample": bma_ms / SWAG_EVAL_SAMPLES,
+           "forward_bound_ms": bound, "bound_share": bound * SWAG_EVAL_SAMPLES / bma_ms,
+           "peak_memory_bytes": peak, "launches": launches,
+           "mean_entropy_nats": float(out["entropy"].mean()),
+           "mean_variance": float(out["variance"].mean()),
+           "cpu_images": k, "cpu_steps": SWAG_CPU_STEPS, "cpu_s": cpu_s,
+           "mean_err_vs_cpu": mean_err, "bma_max_abs_vs_cpu": e2e,
+           "bma_max_abs_vs_cpu_same_state": same_err}
+    emit(row)
+    if (mean_err > SWAG_MEAN_REL or nan or max(e2e.values()) > BMA_E2E_ABS
+            or max(same_err.values()) > BMA_ABS):
+        fail(f"swag: card against CPU on {k} images: mean {mean_err} (budget {SWAG_MEAN_REL}), "
+             f"BMA {e2e} (budget {BMA_E2E_ABS}), from one state {same_err} (budget {BMA_ABS}), "
+             f"NaN {nan}")
+    return row
+
+
+def differing_share(a, b) -> float:
+    return float((a.cpu() != b.cpu()).float().mean())
+
+
+def refine_phase(torch, mk, xtr, ytr, xte, yte) -> dict:
+    """The refinement workflow, the attacks, kNN and Laplace on the card,
+    with the demo ResNet-20 (``utils.demo.get_model``, trained on the card
+    on 512 of the synthetic train images): ``refinement_pipeline``
+    (``shannon_entropy``, eps 0.03, <= 10 iterations, MSP stop 0.998) over
+    10 000 synthetic test images, then ``refine_batch`` alone on the same
+    flagged images (ms an iteration against 3 forwards' bound: forward,
+    input backward, re-score) and again with the clip at the model space's
+    range, against the JAX package's [0, 1] on normalized inputs (ROADMAP
+    C.2); ``fgsm_attack``, ``reverse_fgsm`` (the original labels) at 8/255,
+    ``pgd_attack`` (10 steps of 2/255, a seeded random start) and
+    ``minimal_epsilon`` (16 levels) in pixel space (``renormalize`` inside
+    the model); the penultimate features of 50 000 train and the 10 000
+    test images, ``knn_label_entropy`` (k 10, cosine and euclidean),
+    ``nearest_feature_distance`` and Laplace ``fit`` / ``predictive`` (30
+    samples) / ``closed_form_variance``. Seconds of each call (synchronized
+    host clock), accuracies, flips, iterations, peak device memory, the
+    kernels' launches (none expected). Then card against CPU on 64 images
+    (the CPU a copy of the model; kNN and Laplace on the card's features):
+    flip counts within 1, FGSM's and reverse FGSM's outputs differing on
+    <= 0.1% of values, PGD's correct images within 2 (one differing sign
+    changes the rest of an image's walk), ``minimal_epsilon``'s levels on
+    all but 2 images, kNN entropies and labels equal, Laplace's variances and probabilities
+    within 1e-4 of each tensor's scale. Fails otherwise (after printing
+    the row)."""
+    import copy
+
+    from imagetransformations_tpu_torch import attacks
+    from imagetransformations_tpu_torch import workflows as wf
+    from imagetransformations_tpu_torch.adapt import refine
+    from imagetransformations_tpu_torch.evalx.analysis import flip_analysis
+    from imagetransformations_tpu_torch.models.resnet import CIFAR_MEAN, CIFAR_STD, to_unit
+    from imagetransformations_tpu_torch.uq import knn, laplace
+    from imagetransformations_tpu_torch.uq import metrics as um
+    from imagetransformations_tpu_torch.uq.calibration import youden_threshold
+    from imagetransformations_tpu_torch.utils import demo
+
+    model_fn, space, model = demo.get_model(xtr[:512], ytr[:512], device="cuda", seed=SEED)
+    model.eval()
+    row = {"phase": "refine", "model": "resnet20 (demo recipe)", "images": len(xte)}
+    xte_d, yte_d = torch.from_numpy(xte).cuda(), torch.from_numpy(yte).long().cuda()
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        row[f"{name}_s"] = time.perf_counter() - t0
+        return out
+
+    reset_launches(mk)
+    torch.cuda.reset_peak_memory_stats()
+    res = timed("refinement_pipeline", lambda: wf.refinement_pipeline(
+        model_fn, space, xte_d, yte_d, metric="shannon_entropy", eps=REFINE_EPS,
+        max_iters=REFINE_ITERS, msp_stop=REFINE_MSP_STOP, device="cuda"))
+    if res["n"] != len(xte) or not 0 <= res["refine_iters"] <= REFINE_ITERS:
+        fail(f"refine: bad result {res}")
+    row["pipeline"] = res
+    # refine_batch alone on the same flagged images, and with the clip at
+    # the model space's range
+    x = space(xte_d)
+    with torch.no_grad():
+        logits = model_fn(x)
+        score = um.shannon_entropy(logits)
+        err = (torch.argmax(logits, -1) != yte_d).to(torch.float32)
+        flagged = score > youden_threshold(score, err)
+    lo = float(((0.0 - CIFAR_MEAN) / CIFAR_STD).min())
+    hi = float(((1.0 - CIFAR_MEAN) / CIFAR_STD).max())
+    x_ref, iters = timed("refine_batch", lambda: refine.refine_batch(
+        model_fn, x, flagged, eps=REFINE_EPS, max_iters=REFINE_ITERS, msp_stop=REFINE_MSP_STOP))
+    x_wide, iters_wide = timed("refine_batch_model_range", lambda: refine.refine_batch(
+        model_fn, x, flagged, eps=REFINE_EPS, max_iters=REFINE_ITERS, msp_stop=REFINE_MSP_STOP,
+        clip_min=lo, clip_max=hi))
+    with torch.no_grad():
+        after, after_wide = model_fn(x_ref), model_fn(x_wide)
+    outside = (x < 0.0) | (x > 1.0)
+    fwd_bound = macs_per_image(torch, model, x[:1]) * len(xte) / F32_FMA_PER_S * 1e3
+    row.update({
+        "refine_iters": iters, "n_flagged": int(flagged.sum()),
+        "refine_ms_per_iter": row["refine_batch_s"] * 1e3 / max(iters, 1),
+        "iter_bound_ms": 3 * fwd_bound, "forward_bound_ms": fwd_bound,
+        "clip01_outside_share": float(outside.float().mean()),
+        "clip01_outside_share_flagged": float(outside[flagged].float().mean()),
+        "clip01_flips": flip_analysis(logits, after, yte_d),
+        "model_range_clip": [lo, hi], "model_range_iters": iters_wide,
+        "model_range_flips": flip_analysis(logits, after_wide, yte_d),
+        "clip01_vs_model_range_inputs_differ": differing_share(x_ref, x_wide)})
+    del x_ref, x_wide
+    # the attacks in pixel space
+    x01 = to_unit(xte_d).permute(0, 3, 1, 2)
+
+    def pixel_fn(xp):
+        return model(attacks.renormalize(xp, CIFAR_MEAN, CIFAR_STD))
+
+    def acc(xp):
+        with torch.no_grad():
+            return float((torch.argmax(pixel_fn(xp), -1) == yte_d).float().mean())
+
+    row["accuracy_clean"] = acc(x01)
+    adv = timed("fgsm", lambda: attacks.fgsm_attack(pixel_fn, x01, yte_d, ATTACK_EPS))
+    row["accuracy_fgsm"] = acc(adv)
+    rev = timed("reverse_fgsm", lambda: attacks.reverse_fgsm(pixel_fn, adv, yte_d, ATTACK_EPS))
+    row["accuracy_reverse_fgsm"] = acc(rev)
+    pgd = timed("pgd", lambda: attacks.pgd_attack(
+        pixel_fn, x01, yte_d, torch.Generator(device="cuda").manual_seed(SEED), ATTACK_EPS,
+        PGD_ALPHA, PGD_STEPS))
+    row["accuracy_pgd"] = acc(pgd)
+    meps = timed("minimal_epsilon", lambda: attacks.minimal_epsilon(pixel_fn, x01, yte_d))
+    finite = torch.isfinite(meps)
+    row["minimal_epsilon_flipped_share"] = float(finite.float().mean())
+    row["minimal_epsilon_median"] = float(meps[finite].median()) if bool(finite.any()) else None
+    del adv, rev, pgd
+    # kNN and Laplace on the penultimate features
+    xtr_d = torch.from_numpy(xtr).cuda()
+
+    def features(u8):
+        with torch.no_grad():
+            return torch.cat([model.features(space(u8[i: i + 1000]))
+                              for i in range(0, len(u8), 1000)])
+
+    ftr = timed("features", lambda: features(xtr_d))
+    fte = features(xte_d)
+    ytr_d = torch.from_numpy(ytr).long().cuda()
+    for metric in ("cosine", "euclidean"):
+        ent, maj = timed(f"knn_{metric}", lambda: knn.knn_label_entropy(
+            ftr, ytr_d, fte, KNN_K, 10, metric))
+        row[f"knn_{metric}_mean_entropy"] = float(ent.mean())
+        row[f"knn_{metric}_accuracy"] = float((maj == yte_d).float().mean())
+    dist, _ = timed("nearest_feature_distance",
+                    lambda: knn.nearest_feature_distance(ftr, ytr_d, fte))
+    row["nearest_distance_mean"] = float(dist.mean())
+    w, b = model.fc.weight.detach().T.contiguous(), model.fc.bias.detach()
+    st = timed("laplace_fit", lambda: laplace.fit(ftr, w, b))
+    mean_p, var = timed("laplace_predictive", lambda: laplace.predictive(
+        st, fte, torch.Generator(device="cuda").manual_seed(SEED), LAPLACE_SAMPLES))
+    cf = timed("laplace_closed_form", lambda: laplace.closed_form_variance(st, fte))
+    if not all(bool(torch.isfinite(t).all()) for t in (mean_p, var, cf, dist)):
+        fail("refine: non-finite kNN / Laplace output")
+    row["laplace_mean_variance"] = float(var.mean())
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    row["launches"] = {k: v for k, v in mk.LAUNCHES.items() if v}
+    # the card against the CPU on the first images
+    k = UQ_CPU_IMAGES
+    cpu_model = copy.deepcopy(model).cpu()
+    checks = {}
+    card_res = wf.refinement_pipeline(model, space, xte_d[:k], yte_d[:k], eps=REFINE_EPS,
+                                      max_iters=REFINE_ITERS, msp_stop=REFINE_MSP_STOP,
+                                      device="cuda")
+    t0 = time.perf_counter()
+    cpu_res = wf.refinement_pipeline(cpu_model, space, xte[:k], yte[:k], eps=REFINE_EPS,
+                                     max_iters=REFINE_ITERS, msp_stop=REFINE_MSP_STOP,
+                                     device="cpu")
+    flip_d = max(abs(card_res[f] - cpu_res[f]) for f in
+                 ("n_flagged", "fixed", "broken", "changed", "stable_correct", "stable_incorrect"))
+    checks["refinement_max_count_d"] = flip_d
+    x01c, yc = x01[:k].cpu(), yte_d[:k].cpu()
+
+    def cpu_pixel_fn(xp):
+        return cpu_model(attacks.renormalize(xp, CIFAR_MEAN, CIFAR_STD))
+
+    start = torch.rand(x01c.shape, generator=torch.Generator().manual_seed(SEED)) * (
+        2 * ATTACK_EPS) - ATTACK_EPS
+    pairs = {
+        "fgsm": (attacks.fgsm_attack(pixel_fn, x01[:k], yte_d[:k], ATTACK_EPS),
+                 attacks.fgsm_attack(cpu_pixel_fn, x01c, yc, ATTACK_EPS)),
+        "pgd": (attacks.pgd_attack(pixel_fn, x01[:k], yte_d[:k], eps=ATTACK_EPS,
+                                   alpha=PGD_ALPHA, steps=PGD_STEPS, start=start.cuda()),
+                attacks.pgd_attack(cpu_pixel_fn, x01c, yc, eps=ATTACK_EPS, alpha=PGD_ALPHA,
+                                   steps=PGD_STEPS, start=start)),
+        "minimal_epsilon": (attacks.minimal_epsilon(pixel_fn, x01[:k], yte_d[:k]),
+                            attacks.minimal_epsilon(cpu_pixel_fn, x01c, yc)),
+    }
+    adv_c = pairs["fgsm"][1]
+    pairs["reverse_fgsm"] = (attacks.reverse_fgsm(pixel_fn, adv_c.cuda(), yte_d[:k], ATTACK_EPS),
+                             attacks.reverse_fgsm(cpu_pixel_fn, adv_c, yc, ATTACK_EPS))
+    for name, (g, c) in pairs.items():
+        checks[f"{name}_differing_share"] = differing_share(g, c)
+    g, c = pairs.pop("pgd")
+    with torch.no_grad():
+        hits = [int((torch.argmax(fn(a), -1).cpu() == yc).sum())
+                for fn, a in ((pixel_fn, g), (cpu_pixel_fn, c))]
+    checks["pgd_images_differing"] = int((g.cpu() != c).flatten(1).any(1).sum())
+    checks["pgd_correct_card_cpu"] = hits
+    g, c = pairs.pop("minimal_epsilon")
+    checks["minimal_epsilon_images_differing"] = int((g.cpu() != c).sum())
+    f64c, ftrc, ytrc = fte[:k].cpu(), ftr.cpu(), ytr_d.cpu()
+    knn_equal = True
+    for metric in ("cosine", "euclidean"):
+        ge, gm = knn.knn_label_entropy(ftr, ytr_d, fte[:k], KNN_K, 10, metric)
+        ce, cm = knn.knn_label_entropy(ftrc, ytrc, f64c, KNN_K, 10, metric)
+        knn_equal &= torch.equal(ge.cpu(), ce) and torch.equal(gm.cpu(), cm)
+    gd, gl = knn.nearest_feature_distance(ftr, ytr_d, fte[:k])
+    cd, cl = knn.nearest_feature_distance(ftrc, ytrc, f64c)
+    knn_equal &= torch.equal(gl.cpu(), cl)
+    checks["knn_equal"] = bool(knn_equal)
+    checks["nearest_distance_max_abs"] = float((gd.cpu() - cd).abs().max())
+    cst = laplace.fit(ftrc, w.cpu(), b.cpu())
+    zw = torch.randn((LAPLACE_SAMPLES, *w.shape), generator=torch.Generator().manual_seed(SEED))
+    zb = torch.randn((LAPLACE_SAMPLES, 10), generator=torch.Generator().manual_seed(SEED + 1))
+    gp = laplace.predictive(st, fte[:k], draws=(zw.cuda(), zb.cuda()))
+    cp = laplace.predictive(cst, f64c, draws=(zw, zb))
+    lap = {"w_var": (st.w_var, cst.w_var), "b_var": (st.b_var, cst.b_var),
+           "predictive_var": (gp[1], cp[1]), "mean_probs": (gp[0], cp[0]),
+           "closed_form": (laplace.closed_form_variance(st, fte[:k]),
+                           laplace.closed_form_variance(cst, f64c))}
+    checks["laplace_scaled_err"] = scaled_err({n: g for n, (g, _) in lap.items()},
+                                              {n: c for n, (_, c) in lap.items()})
+    checks["cpu_s"] = time.perf_counter() - t0
+    row["vs_cpu"] = {"images": k, **checks}
+    emit(row)
+    bad = [n for n in pairs if checks[f"{n}_differing_share"] > ATTACK_SHARE]
+    if (flip_d > FLIP_COUNT or bad or not knn_equal or abs(hits[0] - hits[1]) > ATTACK_IMAGES
+            or checks["minimal_epsilon_images_differing"] > ATTACK_IMAGES
+            or checks["laplace_scaled_err"] > LAPLACE_REL):
+        fail(f"refine: card against CPU on {k} images: {checks}")
+    return row
+
+
 def mode_row(torch, mode, shape, run, want, b, launches) -> dict:
     err = max_lsb(torch, run(), want)
     if err != 0:
@@ -2279,6 +2690,14 @@ def main() -> int:
                 if e["name"] == k:
                     e["launches"] += v
         sweep_cli_rows(torch, mk)
+        # the posteriors, the attacks and the refinement (no kernel of
+        # csrc/ runs in them: they launch nothing the kernels line counts)
+        from imagetransformations_tpu_torch.pipeline.datasets import synthetic
+
+        xtr, ytr = synthetic(UQ_TRAIN_IMAGES, seed=SEED)
+        xte, yte = synthetic(UQ_TEST_IMAGES, seed=SEED + 1)
+        swag_phase(torch, mk, xtr, ytr, xte)
+        refine_phase(torch, mk, xtr, ytr, xte, yte)
 
     # ---- geometry: the luma kernel's band rows and images a block ----------
     # ms of each geometry at 4096x32x32 and 32x512x512 (byte-equal to the

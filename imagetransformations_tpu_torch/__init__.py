@@ -21,10 +21,15 @@ JAX package's whole per-op API (``ops`` exports its 31 names, among them
 ``ops.corruptions`` with their dispatch ``evalx.harness.corrupt``; the
 classifiers of ``models`` (CIFAR ResNet-20/56, SimpleCNN, the Bayesian
 CNN, ResNet-18/50 and VGG-19-BN, with ``from_flax`` and the training
-steps), the logit metrics, calibration, ODIN and Mahalanobis of
-``uq``, the evaluation harness (``evaluate_batched``, ``corruption_sweep``,
-``analyze_uncertainty_thresholds``) with ``evalx.report``; and the
-``transform`` / ``chain`` / ``corrupt`` / ``sweep`` / ``report`` CLI.
+steps, ``swag_collect`` among them), every module of ``uq`` (the logit
+metrics, calibration, ODIN, Mahalanobis, MC sampling, SWAG, SGLD, the
+last-layer Laplace approximation, deep k-NN), the evaluation harness
+(``evaluate_batched``, ``corruption_sweep``,
+``analyze_uncertainty_thresholds``) with ``evalx.report`` and
+``evalx.analysis``; the attacks (FGSM, reverse FGSM, PGD, the minimal
+eps, adversarial training), the reverse-FGSM refinement ``adapt.refine``,
+checkpoints, the SWAG and refinement workflows; and the ``transform`` /
+``chain`` / ``corrupt`` / ``sweep`` / ``report`` CLI.
 Hand-written CUDA kernels in ``csrc/``, one or more for each of the JAX
 package's twelve Pallas kernels, carry them on the card; they are built with
 nvcc at first use.
@@ -39,9 +44,13 @@ nvcc at first use.
 - ``models``   : the classifiers (NCHW, true f32: ``core.precision.full_f32``),
                  parameter conversion from and to flax, training steps.
 - ``uq``       : uncertainty scores, calibration and ranking metrics, ODIN,
-                 Mahalanobis.
-- ``evalx``    : the corruption dispatch and sweep harness, reports.
-- ``utils``    : typed configuration, the demo model of the CLI.
+                 Mahalanobis, MC sampling, SWAG, SGLD, Laplace, k-NN.
+- ``attacks``  : FGSM, reverse FGSM, PGD, adversarial training.
+- ``adapt``    : so far the reverse-FGSM refinement (``refine``).
+- ``evalx``    : the corruption dispatch and sweep harness, reports, flip
+                 analysis and failure heads.
+- ``utils``    : typed configuration, the demo model of the CLI,
+                 checkpoints.
 """
 
 __version__ = "0.6.0"

@@ -55,11 +55,13 @@ def as_float(x: torch.Tensor) -> torch.Tensor:
 
 
 def trig_f32(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn`` (``torch.tan``, ``torch.sin``, ``torch.cos``) of the f32 tensor
-    ``x``, taken in f64 and rounded to f32 on ``x``'s device: the correctly
-    rounded f32 value, the same on every device. PyTorch's f32 kernels (on
-    the CPU, and the card's ``tanf``/``sinf``/``cosf``) and XLA's differ from
-    it, and from each other, by an ulp on some arguments."""
+    """``fn`` (``torch.tan``, ``torch.sin``, ``torch.cos``, ``torch.sqrt``) of
+    the f32 tensor ``x``, taken in f64 and rounded to f32 on ``x``'s device:
+    the correctly rounded f32 value, the same on every device. PyTorch's f32
+    kernels (on the CPU, and the card's ``tanf``/``sinf``/``cosf``) and XLA's
+    differ from it, and from each other, by an ulp on some arguments; even
+    PyTorch's AVX-512 f32 ``sqrt`` on the CPU is an ulp off on ~0.6% of
+    values, where XLA's and the card's are correctly rounded."""
     return fn(x.to(torch.float64)).to(torch.float32)
 
 

@@ -18,6 +18,7 @@ reading the legacy flags after that (2.11 does not).
 from __future__ import annotations
 
 import contextlib
+from typing import Callable
 
 import torch
 
@@ -34,3 +35,15 @@ def full_f32():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def input_gradient(loss_fn: Callable[[torch.Tensor], torch.Tensor],
+                   x: torch.Tensor) -> torch.Tensor:
+    """d loss_fn(x) / d x for a scalar loss: one ``torch.autograd.grad`` on a
+    leaf copy of ``x``, in gradient mode whatever the caller's, forward and
+    backward inside :func:`full_f32` (cuDNN's convolution backward reads the
+    TF32 flag when it runs, not when the forward built the graph)."""
+    leaf = x.detach().requires_grad_(True)
+    with full_f32(), torch.enable_grad():
+        (g,) = torch.autograd.grad(loss_fn(leaf), leaf)
+    return g

@@ -1,1 +1,3 @@
-"""Evaluation (PyTorch): so far the corruption dispatch of ``harness``."""
+"""Evaluation (PyTorch): the corruption dispatch and sweep harness
+(``harness``), reports (``report``) and flip analysis with failure heads
+(``analysis``)."""

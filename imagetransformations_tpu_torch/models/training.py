@@ -3,8 +3,8 @@
 Counterpart of ``imagetransformations_tpu/models/training.py:23-110``:
 - ensemble.py:49-77      -> train_members (M independent inits and fits)
 - baysian.py:137-158     -> make_elbo_step (CE(sum) + kl_weight * KL, Adam)
-- swag/cifar_swag.py:137-166 -> swag_collect, which waits for the port's
-  ``uq/swag`` (ROADMAP A.5) and raises.
+- swag/cifar_swag.py:137-166 -> swag_collect (SGD steps + swag.update per
+  batch)
 
 The JAX steps are pure functions of (params, batch_stats, opt_state); here
 a step updates the module and its optimizer in place and returns the
@@ -96,7 +96,20 @@ def make_elbo_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return step
 
 
-def swag_collect(*args, **kwargs):
-    """SWAG collection (cifar_swag.py:137-166): SGD steps with a SWAG moment
-    update each batch. Waits for the port's ``uq/swag`` (ROADMAP A.5)."""
-    raise NotImplementedError("swag_collect waits for the port's uq/swag: ROADMAP A.5")
+def swag_collect(model: nn.Module, data_iter: Iterable, *, lr: float = 1e-4,
+                 max_rank: int = 20, update_every: int = 1):
+    """SWAG collection (cifar_swag.py:137-166 at lr=1e-4): ``make_train_step``
+    with SGD(lr, momentum 0.9) over ``data_iter``'s (x, y) batches (optax's
+    ``sgd(lr, momentum=0.9)``: no dampening, no Nesterov, the first momentum
+    buffer the gradient), and ``swag.update`` on the trainable parameters
+    after every ``update_every``-th step, the first included. Trains
+    ``model`` in place; returns ``(model, swag_state)``."""
+    from imagetransformations_tpu_torch.uq import swag
+
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9))
+    state = swag.init(model, max_rank=max_rank)
+    for i, (x, y) in enumerate(data_iter):
+        step(x, y)
+        if i % update_every == 0:
+            swag.update(state, model)
+    return model, state

@@ -1,9 +1,9 @@
 """Uncertainty quantification (PyTorch): the logit metrics, calibration and
-ranking metrics, ODIN and Mahalanobis. Counterpart of
-``imagetransformations_tpu/uq``; ``mc``, ``knn``, ``laplace``, ``swag`` and
-``sgld`` are not ported yet (ROADMAP A.5)."""
+ranking metrics, ODIN, Mahalanobis, Monte-Carlo sampling (``mc``), the
+SWAG and SGLD posteriors, the last-layer Laplace approximation and deep
+k-NN. Counterpart of ``imagetransformations_tpu/uq``."""
 
-from imagetransformations_tpu_torch.uq import calibration, metrics  # noqa: F401
+from imagetransformations_tpu_torch.uq import calibration, mc, metrics  # noqa: F401
 from imagetransformations_tpu_torch.uq.metrics import (  # noqa: F401
     doctor_alpha,
     doctor_beta,

@@ -28,7 +28,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from imagetransformations_tpu_torch.core.precision import full_f32
+from imagetransformations_tpu_torch.core.precision import input_gradient
 
 
 def probs_of(logits: torch.Tensor) -> torch.Tensor:
@@ -152,10 +152,9 @@ def gradient_uncertainty(
     models treat samples independently in evaluation mode."""
     with torch.no_grad():
         clean = model_fn(x)
-    noisy = _perturbed(x, generator, eps).detach().requires_grad_(True)
-    with full_f32(), torch.enable_grad():
-        per_sample = torch.mean((model_fn(noisy) - clean) ** 2, dim=-1)
-        (grads,) = torch.autograd.grad(per_sample.sum(), noisy)
+    grads = input_gradient(
+        lambda xb: torch.sum(torch.mean((model_fn(xb) - clean) ** 2, dim=-1)),
+        _perturbed(x, generator, eps))
     return torch.sqrt(torch.sum(grads.reshape(grads.shape[0], -1) ** 2, dim=-1))
 
 

@@ -8,10 +8,10 @@ Counterpart of ``imagetransformations_tpu/uq/odin.py:21-60``:
 - fall_2025/generalizedOdin2.py:29-56 — the eps* grid search maximizing the
   mean MSP.
 
-The input gradient is one ``torch.autograd.grad`` over the batch, taken on
-a leaf copy of ``x`` (gradient mode on whatever the caller's mode). The
-backward runs inside ``full_f32`` as the forward does: cuDNN's convolution
-backward reads the TF32 flag when it runs, not when the graph was built.
+The input gradient is one ``torch.autograd.grad`` over the batch
+(``core.precision.input_gradient``: on a leaf copy of ``x``, the forward
+and the backward inside ``full_f32``: cuDNN's convolution backward reads
+the TF32 flag when it runs, not when the graph was built).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from imagetransformations_tpu_torch.core.precision import full_f32
+from imagetransformations_tpu_torch.core.precision import input_gradient
 
 
 def odin_score(
@@ -44,12 +44,8 @@ def _input_gradient(
 ) -> torch.Tensor:
     """d(-sum of the batch's max log-softmax at ``temperature``) / d x: the
     gradient whose sign ODIN steps against."""
-    leaf = x.detach().requires_grad_(True)
-    with full_f32(), torch.enable_grad():
-        logits = model_fn(leaf) / temperature
-        neg_score = -torch.sum(torch.amax(F.log_softmax(logits, dim=-1), dim=-1))
-        (g,) = torch.autograd.grad(neg_score, leaf)
-    return g
+    return input_gradient(lambda xb: -torch.sum(torch.amax(
+        F.log_softmax(model_fn(xb) / temperature, dim=-1), dim=-1)), x)
 
 
 def odin_uncertainty(model_fn, x, temperature: float = 1000.0, eps: float = 0.0014):

@@ -11,9 +11,13 @@ Counterpart of ``imagetransformations_tpu/workflows.py``. Ported so far:
 - ``uncertainty_report`` <- pipeline/cifar10_histogram4.py and the
   pipeline/metrics/ scripts: every logit metric, its AUROC and Youden
   threshold, and histogram PNGs.
+- ``refinement_pipeline`` <- pipeline/cifar_iterative_{mc,ms,ds}.py: metric
+  -> Youden threshold -> reverse-FGSM refinement of the flagged inputs ->
+  re-evaluation.
+- ``swag_pipeline``     <- attacks/cifar10-unvertainty/swag/cifar_swag.py:
+  collection -> weight samples -> BMA evaluation with uncertainty.
 
-The other research workflows (refinement, TENT, SWAG) wait for the port's
-attacks, adaptation and SWAG modules (ROADMAP A.5, A.7, A.8).
+``tent_sweep`` waits for the port's ``adapt.tent`` (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from imagetransformations_tpu_torch.core.image import entry_device
+from imagetransformations_tpu_torch.core.image import entry_device, to_device
 from imagetransformations_tpu_torch.evalx.harness import corruption_generator
 
 
@@ -283,3 +287,83 @@ def uncertainty_report(
                     out_path=os.path.join(out_dir, f"{m}.png")))
     return {"accuracy": res["accuracy"], "thresholds": table, "metrics": res["metrics"],
             "plots": plots}
+
+
+def refinement_pipeline(
+    model_fn, to_model_space, images_u8, labels,
+    metric: str = "shannon_entropy", eps: float = 0.03, max_iters: int = 10,
+    msp_stop: float = 0.998, device: str | torch.device | None = None,
+):
+    """cifar_iterative_* equivalent: score every input by ``metric``, flag
+    those above its Youden threshold for error detection, refine the
+    flagged inputs by reverse FGSM (``adapt.refine.refine_batch``), and
+    compare the predictions before and after (``evalx.analysis
+    .flip_analysis``). Returns ``{"threshold", "n_flagged",
+    "refine_iters", **flip_analysis}``. As in the JAX package the
+    model-space inputs are refined under ``refine_batch``'s default clip
+    [0, 1], whatever range ``to_model_space`` gives them. Runs on
+    ``device`` (None means "cuda", which raises without a GPU)."""
+    from imagetransformations_tpu_torch.adapt.refine import refine_batch
+    from imagetransformations_tpu_torch.evalx.analysis import flip_analysis
+    from imagetransformations_tpu_torch.uq import metrics as um
+    from imagetransformations_tpu_torch.uq.calibration import youden_threshold
+
+    dev = entry_device(device, "refinement_pipeline")
+    x = to_model_space(to_device(images_u8, dev))
+    y = to_device(labels, dev)
+    with torch.no_grad():
+        logits = model_fn(x)
+        correct = (torch.argmax(logits, -1) == y).to(torch.float32)
+        score = um.LOGIT_METRICS[metric](logits)
+        if metric in um.CONFIDENCE_METRICS:
+            score = -score
+        thr = youden_threshold(score, 1.0 - correct)
+        flagged = score > thr
+    x_ref, iters = refine_batch(model_fn, x, flagged, eps=eps, max_iters=max_iters,
+                                msp_stop=msp_stop)
+    with torch.no_grad():
+        logits_after = model_fn(x_ref)
+    return {
+        "threshold": float(thr),
+        "n_flagged": int(torch.sum(flagged)),
+        "refine_iters": int(iters),
+        **flip_analysis(logits, logits_after, y),
+    }
+
+
+def swag_pipeline(
+    model, train_iter_fn, eval_images, generator: torch.Generator | None = None,
+    num_weight_samples: int = 30, eval_mc_samples: int = 10, max_rank: int = 20,
+    lr: float = 1e-4, draws: list | None = None,
+    device: str | torch.device | None = None,
+):
+    """SWAG collection -> sampling -> BMA uncertainty (cifar_swag.py:65-253):
+    ``models.training.swag_collect`` trains ``model`` (on ``device``) in
+    place over ``train_iter_fn()``'s (x, y) batches, ``swag.sample_many``
+    draws ``num_weight_samples`` weight samples (from ``draws``, one
+    ``swag.draw``-shaped dict a sample, else from ``generator``), and the
+    first ``eval_mc_samples`` of them evaluate ``eval_images`` (model space)
+    with the collected BatchNorm statistics. Returns ``{"probs",
+    "entropy"`` (nats)``, "one_minus_max", "jsd", "variance",
+    "swag_state"}``. ``device``: None means "cuda", which raises without a
+    GPU."""
+    from imagetransformations_tpu_torch.models.training import swag_collect
+    from imagetransformations_tpu_torch.uq import mc as umc
+    from imagetransformations_tpu_torch.uq import swag
+
+    dev = entry_device(device, "swag_pipeline")
+    batches = ((to_device(x, dev), to_device(y, dev)) for x, y in train_iter_fn())
+    model, state = swag_collect(model, batches, lr=lr, max_rank=max_rank)
+    stacked = swag.sample_many(state, num_weight_samples, generator, draws=draws)
+    take = {k: v[:eval_mc_samples] for k, v in stacked.items()}
+    mc_logits = swag.bma_logits(model, take, to_device(eval_images, dev))  # [S, B, C]
+    with torch.no_grad():
+        probs = torch.mean(torch.softmax(mc_logits, -1), dim=0)
+        return {
+            "probs": probs,
+            "entropy": umc.predictive_entropy(mc_logits, base2=False),
+            "one_minus_max": 1.0 - torch.amax(probs, -1),
+            "jsd": umc.jensen_shannon(mc_logits),
+            "variance": umc.mc_variance(mc_logits),
+            "swag_state": state,
+        }

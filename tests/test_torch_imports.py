@@ -22,7 +22,8 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tools" / "profile_torch_port.py",
                                          ROOT / "tools" / "time_blur.py",
-                                         ROOT / "tools" / "time_resample.py"]
+                                         ROOT / "tools" / "time_resample.py",
+                                         ROOT / "tools" / "run_uq_phases.py"]
 
 
 def _imported(tree):
@@ -55,7 +56,10 @@ def test_port_files_found():
                    "models/resnet.py", "models/simple_cnn.py", "models/bayesian.py",
                    "models/imagenet.py", "models/convert.py", "models/training.py",
                    "uq/metrics.py", "uq/calibration.py", "uq/mahalanobis.py", "uq/odin.py",
-                   "evalx/harness.py", "evalx/report.py", "utils/demo.py"):
+                   "evalx/harness.py", "evalx/report.py", "utils/demo.py",
+                   "uq/mc.py", "uq/swag.py", "uq/sgld.py", "uq/laplace.py", "uq/knn.py",
+                   "evalx/analysis.py", "attacks/fgsm.py", "attacks/pgd.py",
+                   "adapt/refine.py", "utils/checkpoint.py"):
         assert f"imagetransformations_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 
@@ -138,6 +142,25 @@ assert report.summary_table(sweep)[0]["corruption"] == "rotation"
 assert float(calibration.auroc(torch.tensor([0.1, 0.9]), torch.tensor([0.0, 1.0]))) == 1.0
 assert training.make_train_step and odin.odin_score and mahalanobis.fit and demo.get_data
 assert uq.shannon_entropy(torch.zeros(1, 4)).shape == (1,)
+from imagetransformations_tpu_torch import adapt, attacks
+from imagetransformations_tpu_torch.adapt import refine
+from imagetransformations_tpu_torch.evalx import analysis
+from imagetransformations_tpu_torch.uq import knn, laplace, mc, sgld, swag
+from imagetransformations_tpu_torch.utils import checkpoint
+xm = space(torch.from_numpy(x[:, :32, :32]))
+y0 = torch.zeros(1, dtype=torch.int64)
+assert attacks.pgd_attack(net, xm, y0, torch.Generator(), steps=1).shape == xm.shape
+assert refine.refine_batch(net, xm, torch.ones(1, dtype=torch.bool), max_iters=1)[1] <= 1
+with tempfile.TemporaryDirectory() as d:
+    out = workflows.swag_pipeline(net, lambda: [(xm, y0)] * 2, xm, torch.Generator(),
+                                  num_weight_samples=2, eval_mc_samples=1, max_rank=2,
+                                  device="cpu")
+    checkpoint.save_checkpoint(d, {"n": out["swag_state"].n_models}, step=1)
+    assert checkpoint.load_checkpoint(d)["n"] == 2
+assert workflows.refinement_pipeline(net, space, x[:, :32, :32], np.zeros(1, np.int32),
+                                     max_iters=1, device="cpu")["n"] == 1
+assert analysis.flip_analysis(torch.zeros(1, 2), torch.zeros(1, 2), y0)["n"] == 1
+assert mc.bald(torch.zeros(2, 1, 3)).shape == (1,) and sgld.SGLD and laplace.fit and knn.top_k_indices
 print("ok")
 """
     env = dict(os.environ)

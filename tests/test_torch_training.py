@@ -116,5 +116,5 @@ def test_fit_and_train_members(rng):
     for m, n in zip(members, again):
         for k, v in m.state_dict().items():
             assert torch.equal(v, n.state_dict()[k]), k
-    with pytest.raises(NotImplementedError, match="A.5"):
-        pt.swag_collect()
+    model, state = pt.swag_collect(members[0], data(), max_rank=2)
+    assert model is members[0] and state.n_models == 2
