@@ -68,10 +68,20 @@ holds 4 steps on 64 images to the CPU's with the same draws; and phase
 over 10 000 synthetic images (also with the clip at the model space's
 range), FGSM, reverse FGSM, PGD and ``minimal_epsilon`` in pixel space,
 kNN and Laplace on the features of 50 000 x 10 000 images, each timed,
-and holds each to the CPU on 64 images. These four phases run under the
-flags a user has by default, TF32 on for cuDNN (here cuBLAS's too), so the
-port's scoped true f32 (``core.precision.full_f32``) is what holds their
-results to the CPU's; the rest of the script runs with TF32 off.
+and holds each to the CPU on 64 images. Then phase ``tent`` runs TENT on
+the demo ResNet-20 over the 10 000 test images in batches of 256 (one
+step's ms against its bound, the continuous / reset / conditional
+protocols, ``workflows.tent_sweep`` over 3 corruptions x 2 severities x 4
+protocols, the entropy-gated main-path chain at 10000x32x32 and
+32x512x512 on kernels #2 and #1) and phase ``tta`` runs the three TTA
+stacks, adaptive TTA with SLSQP, MATTA / VATTA, the mixing ratio, every
+post-hoc calibrator (ECE, NLL, Brier before and after) and AugMix at
+10000x32x32 and 32x512x512 on kernel #12; each holds itself to the CPU on
+64 images and fails if its kernels were not launched. These six phases
+run under the flags a user has by default, TF32 on for cuDNN (here
+cuBLAS's too), so the port's scoped true f32 (``core.precision.full_f32``)
+is what holds their results to the CPU's; the rest of the script runs
+with TF32 off.
 Prints one JSON line per phase; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed. Without a CUDA device it exits 1.
@@ -304,6 +314,22 @@ def held_ms(torch, fn, reps: int) -> float:
         cycles *= 4
     fail("no device time: torch.profiler recorded none, and the host did not queue "
          f"{reps} calls within a held stream")
+
+
+def kernels_per_call(torch, fn, reps: int):
+    """CUDA kernels a fn() call launches, counted by torch.profiler over
+    `reps` calls; None where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return n / reps if n else None
 
 
 def row_launches(launches: dict, kernel: str) -> int:
@@ -1945,6 +1971,355 @@ def refine_phase(torch, mk, xtr, ytr, xte, yte) -> dict:
     return row
 
 
+# phases tent and tta: the reference's per-protocol TENT lrs
+# (TENT_Pipelines.py:353-366), its batch, the sweep's cells (gaussian_noise
+# and contrast from the canonical 15, rotation on kernel #12), the CPU
+# check's ragged batches of the first 64 images, and the AugMix draws of the
+# card runs: every op of the 8 in some chain, both rotations among them
+TENT_LR = {"continuous": 2.5e-4, "reset": 1e-3, "conditional": 1e-3}
+TENT_BATCH, TENT_STEPS_TIMED, TENT_CPU_SIZES, TENT_CPU_STEPS = 256, 20, (24, 24, 16), 3
+TENT_CORRUPTIONS, TENT_SEVERITIES = ("gaussian_noise", "contrast", "rotation"), (1, 3)
+GATED_CHAIN = (("blur", {"radius": 1.5}), ("rotation", {"angle": 15.0}), ("grayscale", {}))
+AUGMIX_DRAWS = {"ws": [0.5, 0.3, 0.2], "m": 0.6, "depth_draw": [3, 3, 2],
+                "op_draw": [[0, 2, 4], [1, 5, 3], [6, 7, 0]]}
+TTA_FIT_IMAGES = 5000
+# card against CPU: a TENT step's logits, max |d| over the largest |logit|;
+# the BatchNorm parameters after 3 steps, max |d| in units of lr x steps:
+# Adam moves an element by ~lr a step whatever its gradient's size, so a
+# gradient near 0 whose sign differs between the devices (f32 sums in
+# another order) puts that element up to 2 lr a step apart (the first
+# card run: 6.6e-4 of the largest parameter after 3 steps at lr 1e-3). TTA
+# probabilities max |d|; the MATTA / VATTA and ensemble-temperature weights
+# max |d|
+TENT_LOGITS_REL, TENT_ADAM_BOUND, TTA_PROB_ABS, TTA_WEIGHT_ABS = 1e-4, 2.0, 1e-4, 1e-4
+
+
+def params_and_buffers(model) -> dict:
+    return {k: v.detach().clone() for k, v in [*model.named_parameters(),
+                                               *model.named_buffers()]}
+
+
+def unchanged(torch, model, before: dict) -> bool:
+    """Every parameter and buffer of ``model`` bit-equal to ``before``'s."""
+    now = params_and_buffers(model)
+    return sorted(now) == sorted(before) and all(torch.equal(now[k], v)
+                                                 for k, v in before.items())
+
+
+def tent_phase(torch, mk, xtr, ytr, xte, yte) -> dict:
+    """TENT on the card with the demo ResNet-20 (``utils.demo.get_model``,
+    trained on the card on 512 of the synthetic train images) over 10 000
+    synthetic test images in batches of 256 (39 and a ragged tail of 16):
+    one adaptation step's ms (CUDA events over 20 chained steps; its
+    kernels' device time and count by torch.profiler) against
+    the bound of its forward plus its backward to the BatchNorm parameters
+    (2 forwards' multiply-adds over the f32 FMA rate: the convolutions'
+    weights are frozen, so the backward takes input gradients only);
+    ``evaluate_with_tent`` under the three protocols at the reference's lrs
+    (s and accuracy; the batches the conditional gate adapted);
+    ``workflows.tent_sweep`` over gaussian_noise, contrast and rotation at
+    severities 1 and 3 with the 4 protocols and the eval-mode baseline (s a
+    cell); ``apply_if_entropy`` and ``conditional_transform_eval`` with the
+    main-path chain blur 1.5 -> rotation 15 -> grayscale at 10000x32x32
+    (kernel #2) and 32x512x512, half of them flat (kernel #1); peak memory;
+    the kernels' launches (#1, #2 and, from the rotation cells, #12 must
+    run). Then card against CPU on the first 64 images (batches of 24, 24,
+    16; the CPU a copy of the model): each protocol's accuracy and each
+    sweep cell's (numpy draws) within 1/64, a step's logits within 1e-4 of
+    the largest, the BatchNorm parameters after 3 steps within 2 lr x 3
+    (Adam's bound where a gradient near 0 differs in sign; the flips are
+    counted), the gated chain 0 LSB, and the module's parameters and
+    buffers bit-equal to what they were before the phase. Fails otherwise
+    (after printing the row)."""
+    import copy
+
+    import numpy as np
+
+    from imagetransformations_tpu_torch import workflows as wf
+    from imagetransformations_tpu_torch.adapt import conditional, tent
+    from imagetransformations_tpu_torch.evalx.harness import numpy_draws
+    from imagetransformations_tpu_torch.pipeline.chain import OpSpec
+    from imagetransformations_tpu_torch.utils import demo
+
+    model_fn, space, model = demo.get_model(xtr[:512], ytr[:512], device="cuda", seed=SEED)
+    before = params_and_buffers(model)
+    x_d, y_d = torch.from_numpy(xte).cuda(), torch.from_numpy(yte).long().cuda()
+    xm = space(x_d)
+    n, b = len(xte), TENT_BATCH
+    starts = range(0, n, b)
+    batches = [(xm[i: i + b], x_d[i: i + b]) for i in starts]
+    labels = [y_d[i: i + b] for i in starts]
+    row = {"phase": "tent", "model": "resnet20 (demo recipe)", "images": n, "batch": b,
+           "batches": len(batches), "tail": n % b, "lr": TENT_LR}
+    reset_launches(mk)
+    torch.cuda.reset_peak_memory_stats()
+    state, tx = tent.init_tent(model, TENT_LR["reset"])
+    step = tent.make_tent_step(model, tx)
+    held = [state]
+
+    def one_step():
+        held[0], _ = step(held[0], batches[0][0])
+
+    row["step_ms"] = time_ms(torch, one_step, TENT_STEPS_TIMED)
+    row["step_device_ms"] = device_ms(torch, one_step, 5)
+    row["step_kernels"] = kernels_per_call(torch, one_step, 5)
+    bound = 2 * macs_per_image(torch, model, xm[:1]) * b / F32_FMA_PER_S * 1e3
+    row.update(step_bound_ms=bound, step_bound_share=bound / row["step_ms"])
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        row[f"{name}_s"] = time.perf_counter() - t0
+        return out
+
+    for proto, lr in TENT_LR.items():
+        row[f"{proto}_accuracy"] = timed(proto, lambda: tent.evaluate_with_tent(
+            model, batches, labels, lr=lr, protocol=proto, device="cuda"))
+    with torch.no_grad():
+        row["eval_mode_accuracy"] = float((torch.argmax(model_fn(xm), -1) == y_d).float().mean())
+    row["conditional_adapted_batches"] = sum(
+        float(conditional.batch_gate_fraction(raw)) > 0.5 for _, raw in batches)
+    # one call a corruption (each cell draws from its own generator, so the
+    # cells are those of one call), timed apart
+    row["sweep"] = {}
+    for name in TENT_CORRUPTIONS:
+        row["sweep"].update(timed(f"sweep_{name}", lambda: wf.tent_sweep(
+            model, (name,), TENT_SEVERITIES, x_d, y_d, space, seed=SEED, lr=TENT_LR,
+            batch_size=b, model_apply_eval=model_fn, device="cuda")))
+    row["sweep_s"] = sum(row[f"sweep_{name}_s"] for name in TENT_CORRUPTIONS)
+    row["sweep_s_per_cell"] = row["sweep_s"] / (len(TENT_CORRUPTIONS) * len(TENT_SEVERITIES))
+    # the gated main-path chain
+    chain = [OpSpec(name, dict(p)) for name, p in GATED_CHAIN]
+    x512 = images(torch, SHAPE_512, SEED + 201)
+    x512[: SHAPE_512[0] // 2] = x512[: SHAPE_512[0] // 2, :1, :1]  # flat: below the gate
+    y512 = torch.randint(0, 10, (SHAPE_512[0],), generator=torch.Generator().manual_seed(SEED))
+    for label, imgs, y in (("32", x_d, y_d), ("512", x512, y512.cuda())):
+        gated_ms, (mixed, flagged) = once_ms(torch, lambda: conditional.apply_if_entropy(
+            imgs, chain, device="cuda"))
+        row[f"apply_if_entropy_{label}_ms"] = gated_ms
+        row[f"apply_if_entropy_{label}_flagged"] = int(flagged.sum())
+        row[f"conditional_transform_eval_{label}"] = timed(
+            f"conditional_transform_eval_{label}", lambda: conditional.conditional_transform_eval(
+                model_fn, space, imgs, y, chain, device="cuda"))
+    del mixed, flagged
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+    row["launches"] = launches
+    # the card against the CPU on the first images
+    k = UQ_CPU_IMAGES
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_before = params_and_buffers(cpu_model)
+    t0 = time.perf_counter()
+    checks = {}
+    sizes = np.cumsum((0,) + TENT_CPU_SIZES)
+    for proto, lr in TENT_LR.items():
+        accs = []
+        for net, dev in ((model, "cuda"), (cpu_model, "cpu")):
+            raws, ys = x_d[:k].to(dev), y_d[:k].to(dev)
+            xs = space(raws)
+            bb = [(xs[i: j], raws[i: j]) for i, j in zip(sizes[:-1], sizes[1:])]
+            lb = [ys[i: j] for i, j in zip(sizes[:-1], sizes[1:])]
+            accs.append(tent.evaluate_with_tent(net, bb, lb, lr=lr, protocol=proto, device=dev))
+        checks[f"{proto}_accuracy_card_cpu"] = accs
+    runs = []
+    for net, dev in ((model, "cuda"), (cpu_model, "cpu")):
+        st, stx = tent.init_tent(net, TENT_LR["reset"])
+        stp = tent.make_tent_step(net, stx)
+        xs = space(x_d[:k].to(dev))
+        first = stp(st, xs)
+        st = first[0]
+        for _ in range(TENT_CPU_STEPS - 1):
+            st, _ = stp(st, xs)
+        runs.append((first, st.bn_params))
+    (f_card, bn_card), (f_cpu, bn_cpu) = runs
+    checks["first_logits_scaled_err"] = scaled_err({"logits": f_card[1]}, {"logits": f_cpu[1]})
+    d = torch.cat([(bn_card[n_].cpu() - v).abs().reshape(-1) for n_, v in bn_cpu.items()])
+    g_card, g_cpu = f_card[0].opt_state.mu["bn"].cpu(), f_cpu[0].opt_state.mu["bn"]
+    flips = torch.sign(g_card) != torch.sign(g_cpu)  # mu = 0.1 g after one step
+    checks["bn_params_max_abs"] = float(d.max())
+    checks["bn_params_share_above_1e-5"] = float((d > 1e-5).float().mean())
+    checks["first_grad_sign_flips"] = int(flips.sum())
+    checks["first_grad_max_abs_at_flips"] = (float(10 * g_cpu[flips].abs().max())
+                                             if bool(flips.any()) else 0.0)
+
+    def draws(name, sev):
+        return numpy_draws(xte[:k], name, sev, np.random.default_rng([SEED, sev]))
+
+    cells = [wf.tent_sweep(net, TENT_CORRUPTIONS, TENT_SEVERITIES, xte[:k], yte[:k], space,
+                           lr=TENT_LR, batch_size=TENT_CPU_SIZES[0], model_apply_eval=net,
+                           cell_draws=draws, device=dev)
+             for net, dev in ((model, "cuda"), (cpu_model, "cpu"))]
+    checks["sweep_max_accuracy_d"] = max(
+        abs(cells[0][c][s][p] - cells[1][c][s][p])
+        for c in TENT_CORRUPTIONS for s in TENT_SEVERITIES for p in cells[0][c][s])
+    gated = [conditional.apply_if_entropy(x_d[:k].to(dev), chain, device=dev)[0].cpu()
+             for dev in ("cuda", "cpu")]
+    checks["gated_chain_max_lsb"] = max_lsb(torch, gated[0], gated[1])
+    checks["module_unchanged"] = (unchanged(torch, model, before)
+                                  and unchanged(torch, cpu_model, cpu_before))
+    checks["cpu_s"] = time.perf_counter() - t0
+    row["vs_cpu"] = {"images": k, **checks}
+    emit(row)
+    missing = [kn for kn in ("luma_blur_rotate", "luma_blur_rotate_packed", "pil_rotate_nearest")
+               if not launches.get(kn)]
+    acc_d = max(abs(a - c) for a, c in (checks[f"{p}_accuracy_card_cpu"] for p in TENT_LR))
+    if (missing or acc_d > 1 / k + 1e-12 or checks["sweep_max_accuracy_d"] > 1 / k + 1e-12
+            or checks["first_logits_scaled_err"] > TENT_LOGITS_REL
+            or checks["bn_params_max_abs"] > TENT_ADAM_BOUND * TENT_LR["reset"] * TENT_CPU_STEPS
+            or checks["gated_chain_max_lsb"] != 0 or not checks["module_unchanged"]):
+        fail(f"tent: kernels not launched {missing}, or card against CPU on {k} images: {checks}")
+    return launches
+
+
+def calibration_row(torch, probs, y) -> dict:
+    from imagetransformations_tpu_torch.uq import calibration as cal
+
+    p = torch.as_tensor(probs).to(y.device).float()
+    return {"ece": float(cal.ece(p, y)), "nll": float(cal.nll(p, y)),
+            "brier": float(cal.brier(p, y)), "accuracy": float(cal.accuracy(p, y))}
+
+
+def tta_phase(torch, mk, xtr, ytr, xte, yte) -> dict:
+    """Test-time augmentation, MATTA and post-hoc calibration on the card,
+    with the demo ResNet-20 over the 10 000 synthetic test images:
+    ``predict_with_tta`` with each of the three stacks (ms, accuracy, ECE);
+    ``adaptive_view_probs`` (ms) and ``fit_adaptive_weights`` (scipy's SLSQP
+    on the host) on the first 5000, the mixture scored on the other 5000;
+    ``fit_matta_weights`` (MATTA and VATTA, 200 Adam steps) and
+    ``find_optimal_rho`` the same way; every post-hoc calibrator fitted on
+    the first 5000 logits and scored on the other 5000 (ECE, NLL, Brier
+    before and after; ms of fit and calibrate); ``augmix`` at 10000x32x32
+    and 32x512x512 with draws that hold every op, both rotations among them
+    (kernel #12 must run), ms a call; peak memory; the kernels' launches.
+    Then card against CPU on the first 64 images: AugMix 0 LSB with the
+    same draws (both shapes' first images), the three stacks' and the
+    adaptive views' probabilities within 1e-4 (the same crop offsets), the
+    MATTA / VATTA and ensemble-temperature weights within 1e-4. Fails
+    otherwise (after printing the row)."""
+    import copy
+
+    import numpy as np
+
+    from imagetransformations_tpu_torch.adapt import augmix, matta, posthoc, tta
+    from imagetransformations_tpu_torch.core.precision import full_f32
+    from imagetransformations_tpu_torch.ops import warp as wp
+    from imagetransformations_tpu_torch.utils import demo
+
+    model_fn, space, model = demo.get_model(xtr[:512], ytr[:512], device="cuda", seed=SEED)
+    x_d, y_d = torch.from_numpy(xte).cuda(), torch.from_numpy(yte).long().cuda()
+
+    def fn(u8):
+        return model(space(u8))
+
+    h = TTA_FIT_IMAGES
+    row = {"phase": "tta", "model": "resnet20 (demo recipe)", "images": len(xte),
+           "fit_images": h}
+    reset_launches(mk)
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    stacks = {"gentle": tta.gentle_stack, "multiscale": tta.multiscale_stack,
+              "color": tta.color_stack}
+    for name, stack in stacks.items():
+        ms, probs = once_ms(torch, lambda: tta.predict_with_tta(fn, x_d, g, stack=stack,
+                                                                device="cuda"))
+        row[f"tta_{name}"] = {"ms": ms, **calibration_row(torch, probs, y_d)}
+    ms, vp = once_ms(torch, lambda: tta.adaptive_view_probs(fn, x_d, g, device="cuda"))
+    row["adaptive_view_probs_ms"] = ms
+    t0 = time.perf_counter()
+    w = tta.fit_adaptive_weights(vp[:, :h], y_d[:h])
+    row["fit_adaptive_weights_s"] = time.perf_counter() - t0
+    row["adaptive_weights"] = w.tolist()
+    with full_f32():
+        mixed = torch.einsum("v,vbc->bc", torch.from_numpy(w.astype(np.float32)).cuda(),
+                             vp[:, h:])
+    row["adaptive"] = {"view0": calibration_row(torch, vp[0, h:], y_d[h:]),
+                       "mixture": calibration_row(torch, mixed, y_d[h:])}
+    for per_class, label in ((True, "matta"), (False, "vatta")):
+        ms, wm = once_ms(torch, lambda: matta.fit_matta_weights(vp[:, :h], y_d[:h],
+                                                                 per_class=per_class))
+        mix = matta.apply_matta if per_class else matta.apply_vatta
+        row[label] = {"fit_ms": ms, **calibration_row(
+            torch, mix(vp[:, h:], torch.from_numpy(wm).cuda()), y_d[h:])}
+    t0 = time.perf_counter()
+    rho = matta.find_optimal_rho(vp[0, :h], vp[1:, :h].mean(0), y_d[:h])
+    row["find_optimal_rho"] = {"s": time.perf_counter() - t0, "rho": rho, **calibration_row(
+        torch, rho * vp[0, h:] + (1.0 - rho) * vp[1:, h:].mean(0), y_d[h:])}
+    del vp, mixed
+    with torch.no_grad():
+        logits = fn(x_d)
+    row["uncalibrated"] = calibration_row(torch, torch.softmax(logits[h:], -1), y_d[h:])
+    probs = torch.softmax(logits, -1)
+    calibrators = {
+        "temperature": (posthoc.TemperatureScaling(), logits),
+        "ensemble_temperature": (posthoc.EnsembleTemperatureScaling(), logits),
+        "isotonic": (posthoc.IsotonicRegressionCalibration(), probs),
+        "accuracy_preserving_isotonic": (posthoc.AccuracyPreservingIsotonicRegression(), probs),
+    }
+    for name, (cal, inputs) in calibrators.items():
+        fit_ms, _ = once_ms(torch, lambda: cal.fit(inputs[:h], y_d[:h]))
+        cal_ms, out = once_ms(torch, lambda: cal.calibrate(inputs[h:]))
+        row[name] = {"fit_ms": fit_ms, "calibrate_ms": cal_ms, **calibration_row(torch, out,
+                                                                                y_d[h:])}
+    row["temperature"]["T"] = calibrators["temperature"][0].temperature
+    row["ensemble_temperature"]["weights"] = calibrators["ensemble_temperature"][0].weights.tolist()
+    boosted = posthoc.TTABoostedCalibration(posthoc.TemperatureScaling(), [wp.flip_vertical])
+    fit_ms, _ = once_ms(torch, lambda: boosted.fit(logits[:h], y_d[:h]))
+    cal_ms, out = once_ms(torch, lambda: boosted.calibrate_with_model(fn, x_d[h:]))
+    row["tta_boosted_temperature"] = {"fit_ms": fit_ms, "calibrate_ms": cal_ms,
+                                      **calibration_row(torch, out, y_d[h:])}
+    # AugMix on kernel #12
+    x512 = images(torch, SHAPE_512, SEED + 202)
+    for label, imgs in (("32", x_d), ("512", x512)):
+        out = augmix.augmix(imgs, draws=AUGMIX_DRAWS, device="cuda")
+        if out.shape != imgs.shape or out.dtype != torch.uint8:
+            fail(f"tta: augmix gave {tuple(out.shape)} {out.dtype}")
+        row[f"augmix_{label}_ms"] = time_ms(
+            torch, lambda: augmix.augmix(imgs, draws=AUGMIX_DRAWS, device="cuda"), 5)
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+    row["launches"] = launches
+    # the card against the CPU on the first images
+    k = UQ_CPU_IMAGES
+    cpu_model = copy.deepcopy(model).cpu()
+
+    def cpu_fn(u8):
+        return cpu_model(space(u8))
+
+    t0 = time.perf_counter()
+    checks = {"augmix_max_lsb": max(
+        max_lsb(torch, augmix.augmix(imgs, draws=AUGMIX_DRAWS, device="cuda").cpu(),
+                augmix.augmix(imgs.cpu(), draws=AUGMIX_DRAWS, device="cpu"))
+        for imgs in (x_d[:k], x512[:2]))}
+    offsets = [[1, 3], [4, 0]]
+    for name, stack in stacks.items():
+        pc = tta.predict_with_tta(fn, x_d[:k], stack=stack, offsets=offsets, device="cuda")
+        pp = tta.predict_with_tta(cpu_fn, xte[:k], stack=stack, offsets=offsets, device="cpu")
+        checks[f"tta_{name}_max_abs"] = float((pc.cpu() - pp).abs().max())
+    vc = tta.adaptive_view_probs(fn, x_d[:k], offsets=offsets[:1], device="cuda")
+    vq = tta.adaptive_view_probs(cpu_fn, xte[:k], offsets=offsets[:1], device="cpu")
+    checks["adaptive_view_probs_max_abs"] = float((vc.cpu() - vq).abs().max())
+    yk = y_d[:k]
+    for per_class, label in ((True, "matta"), (False, "vatta")):
+        checks[f"{label}_weights_max_abs"] = float(np.abs(
+            matta.fit_matta_weights(vc, yk, per_class=per_class)
+            - matta.fit_matta_weights(vc.cpu(), yk.cpu(), per_class=per_class)).max())
+    ets = [posthoc.EnsembleTemperatureScaling().fit(lg, yk.to(lg.device)).weights
+           for lg in (logits[:k], logits[:k].cpu())]
+    checks["ensemble_temperature_weights_max_abs"] = float(np.abs(ets[0] - ets[1]).max())
+    checks["cpu_s"] = time.perf_counter() - t0
+    row["vs_cpu"] = {"images": k, **checks}
+    emit(row)
+    probs_d = max(v for c, v in checks.items() if c.endswith("_max_abs") and "weights" not in c)
+    weights_d = max(v for c, v in checks.items() if c.endswith("weights_max_abs"))
+    if (not launches.get("pil_rotate_nearest") or checks["augmix_max_lsb"] != 0
+            or probs_d > TTA_PROB_ABS or weights_d > TTA_WEIGHT_ABS):
+        fail(f"tta: #12 launches {launches.get('pil_rotate_nearest')}, or card against CPU on "
+             f"{k} images: {checks}")
+    return launches
+
+
 def mode_row(torch, mode, shape, run, want, b, launches) -> dict:
     err = max_lsb(torch, run(), want)
     if err != 0:
@@ -2698,6 +3073,13 @@ def main() -> int:
         xte, yte = synthetic(UQ_TEST_IMAGES, seed=SEED + 1)
         swag_phase(torch, mk, xtr, ytr, xte)
         refine_phase(torch, mk, xtr, ytr, xte, yte)
+        # TENT with its entropy gate, TTA, MATTA, calibration and AugMix: the
+        # gated chain runs #1 / #2, AugMix and the sweep's rotation cells #12
+        for phase in (tent_phase, tta_phase):
+            for k, v in phase(torch, mk, xtr, ytr, xte, yte).items():
+                for e in entries:
+                    if e["name"] == k:
+                        e["launches"] += v
 
     # ---- geometry: the luma kernel's band rows and images a block ----------
     # ms of each geometry at 4096x32x32 and 32x512x512 (byte-equal to the

@@ -28,8 +28,10 @@ last-layer Laplace approximation, deep k-NN), the evaluation harness
 ``analyze_uncertainty_thresholds``) with ``evalx.report`` and
 ``evalx.analysis``; the attacks (FGSM, reverse FGSM, PGD, the minimal
 eps, adversarial training), the reverse-FGSM refinement ``adapt.refine``,
-checkpoints, the SWAG and refinement workflows; and the ``transform`` /
-``chain`` / ``corrupt`` / ``sweep`` / ``report`` CLI.
+TENT with its entropy gate, TTA, MATTA, post-hoc calibration and AugMix
+(``adapt``), checkpoints and profiling, the SWAG, refinement and TENT
+workflows; and the ``transform`` / ``chain`` / ``corrupt`` / ``sweep`` /
+``report`` CLI.
 Hand-written CUDA kernels in ``csrc/``, one or more for each of the JAX
 package's twelve Pallas kernels, carry them on the card; they are built with
 nvcc at first use.
@@ -46,16 +48,23 @@ nvcc at first use.
 - ``uq``       : uncertainty scores, calibration and ranking metrics, ODIN,
                  Mahalanobis, MC sampling, SWAG, SGLD, Laplace, k-NN.
 - ``attacks``  : FGSM, reverse FGSM, PGD, adversarial training.
-- ``adapt``    : so far the reverse-FGSM refinement (``refine``).
+- ``adapt``    : reverse-FGSM refinement, TENT and its entropy gate, TTA,
+                 MATTA / VATTA, post-hoc calibration, AugMix.
 - ``evalx``    : the corruption dispatch and sweep harness, reports, flip
                  analysis and failure heads.
 - ``utils``    : typed configuration, the demo model of the CLI,
-                 checkpoints.
+                 checkpoints, profiling.
 """
 
 __version__ = "0.6.0"
 
 from imagetransformations_tpu_torch.core.grids import PARAM_GRIDS  # noqa: F401
+from imagetransformations_tpu_torch.core.image import (  # noqa: F401
+    as_batch,
+    as_float,
+    to_uint8_rint,
+    to_uint8_trunc,
+)
 from imagetransformations_tpu_torch.ops.hopper import (  # noqa: F401
     blur_rotate_fused,
     blur_separable,

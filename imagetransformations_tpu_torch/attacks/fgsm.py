@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagetransformations_tpu_torch.core.grids import linspace_f32
 from imagetransformations_tpu_torch.core.precision import full_f32, input_gradient
 
 
@@ -57,9 +58,10 @@ def reverse_fgsm(model_fn: Callable, x: torch.Tensor, labels: torch.Tensor,
 def minimal_epsilon(model_fn: Callable, x: torch.Tensor, labels: torch.Tensor,
                     eps_grid: torch.Tensor | None = None) -> torch.Tensor:
     """Per-sample smallest eps of ``eps_grid`` (default 1/255 .. 16/255, 16
-    levels) whose FGSM step flips the prediction; inf where none does."""
+    levels, JAX's f32 ``linspace`` within 1 ulp) whose FGSM step flips the
+    prediction; inf where none does."""
     if eps_grid is None:
-        eps_grid = torch.linspace(1.0 / 255, 16.0 / 255, 16)
+        eps_grid = linspace_f32(1.0 / 255, 16.0 / 255, 16)
     eps_grid = torch.as_tensor(eps_grid, dtype=torch.float32).to(x.device)
     g = torch.sign(_ce_grad(model_fn, x, labels))
     x = x.detach()

@@ -59,3 +59,27 @@ def sample_params(generator: torch.Generator, name: str, n: int) -> torch.Tensor
     """Draw ``n`` i.i.d. grid values for transform ``name`` -> f32 [n] on the
     generator's device."""
     return sample_indices(generator, name, n)[1]
+
+
+def sample_all(generator: torch.Generator, n: int) -> dict[str, torch.Tensor]:
+    """One ``[n]`` parameter vector per transform type, drawn in the order
+    of ``PARAM_GRIDS`` from ``generator``."""
+    return {name: sample_params(generator, name, n) for name in PARAM_GRIDS}
+
+
+def linspace_f32(start: float, stop: float, num: int, device=None) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` in f32 as XLA computes it: the
+    fractions ``t = iota * f32(1 / (num - 1))`` (XLA turns the division by
+    a constant into that product), ``start * (1 - t) + stop * t``, and
+    ``stop`` itself as the last value. On the unit interval this is JAX's
+    grid bit for bit (``torch.linspace`` differs: at 11 points its 0.9 is
+    0.89999998, JAX's 0.90000004); elsewhere XLA may fold and contract the
+    sum, and the values are within 1 ulp of JAX's."""
+    if num < 2:
+        return torch.full((num,), float(start), dtype=torch.float32, device=device)
+    div = num - 1
+    t = torch.arange(div, dtype=torch.float32, device=device) * (
+        torch.tensor(1.0, dtype=torch.float32) / div).to(device)
+    a = torch.tensor(start, dtype=torch.float32, device=device)
+    b = torch.tensor(stop, dtype=torch.float32, device=device)
+    return torch.cat([a * (1.0 - t) + b * t, b[None]])

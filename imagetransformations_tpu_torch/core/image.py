@@ -49,6 +49,11 @@ def to_device(images, device: torch.device) -> torch.Tensor:
     return images.to(device)
 
 
+def to_host(a) -> np.ndarray:
+    """A tensor (any device) or an array-like as a numpy array on the host."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def as_float(x: torch.Tensor) -> torch.Tensor:
     """uint8 [0,255] -> float32 [0,255] (identity for float32 inputs)."""
     return x if x.dtype == torch.float32 else x.to(torch.float32)

@@ -14,6 +14,12 @@ out (trunc for PIL blends, rint for cv2).
 Every f32 operation rounds on its own, as PIL's C code does. (XLA-CPU
 contracts the blends of the JAX ``enhance_contrast`` and ``enhance_color``
 into FMAs; the tests state that budget.)
+
+Scope of the ImageEnhance ops (brightness, ``enhance_contrast``,
+``enhance_color``, and ``stencil.sharpen``): PIL-exact on 1 and 3
+channels; 2 and 4 channels resampled per channel (blended channel by
+channel: Pillow's ImageEnhance also blends the alpha channel of LA / RGBA,
+which the reference never sends; it opens every image as RGB).
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ def _pvec(p, n: int, device: torch.device) -> torch.Tensor:
 
 
 def apply_brightness(img: torch.Tensor, factor) -> torch.Tensor:
-    """PIL ImageEnhance.Brightness(1.0 + factor); factor in the [-0.05, 0.05] grid."""
+    """PIL ImageEnhance.Brightness(1.0 + factor); factor in the [-0.05, 0.05]
+    grid. Scope: PIL-exact on 1 and 3 channels; 2 and 4 channels resampled
+    per channel."""
     x, single = as_batch(img)
     out = as_float(x) * (1.0 + _pvec(factor, x.shape[0], x.device))
     return restore_layout(finalize(out, img.dtype, "trunc"), single)
@@ -81,7 +89,8 @@ def invert(img: torch.Tensor) -> torch.Tensor:
 def enhance_contrast(img: torch.Tensor, factor) -> torch.Tensor:
     """PIL ImageEnhance.Contrast: trunc blend toward the image's mean luma
     ``int(mean(L) + 0.5)``, taken in integers as ``(2*total + npix) //
-    (2*npix)`` so the .5 boundary is exact."""
+    (2*npix)`` so the .5 boundary is exact. Scope: PIL-exact on 1 and 3
+    channels; 2 and 4 channels resampled per channel."""
     x, single = as_batch(img)
     gray = grayscale(x, keep_rgb=False).to(torch.int64)
     total = gray.sum(dim=(1, 2, 3), keepdim=True)
@@ -92,7 +101,8 @@ def enhance_contrast(img: torch.Tensor, factor) -> torch.Tensor:
 
 
 def enhance_color(img: torch.Tensor, factor) -> torch.Tensor:
-    """PIL ImageEnhance.Color: trunc blend toward each pixel's luma."""
+    """PIL ImageEnhance.Color: trunc blend toward each pixel's luma. Scope:
+    PIL-exact on 1 and 3 channels; 2 and 4 channels resampled per channel."""
     x, single = as_batch(img)
     gray = grayscale(x, keep_rgb=False).to(torch.float32)
     out = gray + (as_float(x) - gray) * _pvec(factor, x.shape[0], x.device)

@@ -269,7 +269,8 @@ def sharpen(img: torch.Tensor, factor) -> torch.Tensor:
     """PIL ImageEnhance.Sharpness(factor): ``sm + (x - sm) * f`` with sm the
     SMOOTH filter, every op rounded on its own (as PIL does), then clip and
     trunc for u8 (cifar_image_transformations.py:93-99). ``factor`` is a
-    scalar or one value an image."""
+    scalar or one value an image. Scope: PIL-exact on 1 and 3 channels; 2
+    and 4 channels resampled per channel."""
     x, single = as_batch(img)
     xf = torch.clamp(torch.trunc(as_float(x)), 0.0, 255.0)
     sm = _smooth3x3(xf)

@@ -145,7 +145,9 @@ def affine_warp(img: torch.Tensor, matrix, out_size: tuple[int, int] | None = No
     in f32. ``method``: "nearest" (floor), "bilinear" (clamped 2x2 window,
     trunc) or "bicubic" (PIL's A = -1 cubic, clamped 4x4 window, clip then
     trunc). Outside the source canvas: ``fill``. u8 in, u8 out; float in,
-    f32 out unquantized. HWC or NHWC."""
+    f32 out unquantized. HWC or NHWC. Scope: PIL-exact on 1 and 3
+    channels; 2 and 4 channels resampled per channel (Pillow premultiplies
+    alpha for LA / RGBA; the reference opens every image as RGB)."""
     x, single = as_batch(img)
     n, h, w, _ = x.shape
     out_h, out_w = out_size or (h, w)
@@ -222,7 +224,8 @@ def apply_rotation(img: torch.Tensor, angle, max_angle_deg: float | None = None)
 def apply_shear(img: torch.Tensor, shear_factor: float) -> torch.Tensor:
     """Reference apply_shear: widened canvas (w + ceil(s*h)), AFFINE
     BICUBIC, white fill. A negative canvas width raises ``ValueError``, as
-    PIL does."""
+    PIL does. Scope: PIL-exact on 1 and 3 channels; 2 and 4 channels
+    resampled per channel."""
     x, single = as_batch(img)
     h, w = x.shape[1], x.shape[2]
     s = float(shear_factor)
@@ -359,7 +362,8 @@ def apply_scale(img: torch.Tensor, scale_factor: float) -> torch.Tensor:
     """Reference apply_scale: LANCZOS resize, then centre crop (up) or black
     pad (down) back to the canvas (transformation.py:173-196). The exact
     ``apply_scale_batched`` with the one factor as its grid: the JAX package
-    documents the two as bit-exact."""
+    documents the two as bit-exact. Scope: PIL-exact on 1 and 3 channels;
+    2 and 4 channels resampled per channel."""
     x, single = as_batch(img)
     f = float(scale_factor)
     return restore_layout(apply_scale_batched(x, [f] * x.shape[0], grid=(f,)), single)
@@ -513,7 +517,10 @@ def pil_resize(img: torch.Tensor, out_w: int, out_h: int, method: str = "lanczos
     rounding. Each pass is an f64 matrix product whose every partial sum is
     an integer below 2^31 in magnitude, so exact in any order (as in
     ``apply_scale_batched``). u8 in, u8 out; float input is truncated and
-    clipped first and comes back as f32."""
+    clipped first and comes back as f32. Scope: PIL-exact on 1 and 3
+    channels; 2 and 4 channels resampled per channel: on RGBA each channel
+    equals PIL's "L" resize of that channel (Pillow premultiplies alpha;
+    the reference opens every image as RGB)."""
     x, single = as_batch(img)
     n, h, w, c = x.shape
     hmat = _resize_matrix_on(w, int(out_w), method, x.device)

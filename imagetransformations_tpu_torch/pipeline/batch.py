@@ -199,6 +199,16 @@ def _rotation_pil(images: torch.Tensor, idx: torch.Tensor, grid: tuple) -> torch
     return rg.pil_rotate_nearest(images.contiguous(), table[idx.to(images.device)], 0)
 
 
+def transform_batch(images, chain, generator: torch.Generator | None = None,
+                    **kw) -> torch.Tensor:
+    """Apply a declarative op-chain to an NHWC batch: ``build_chain_fn(chain,
+    **kw)(images, generator)`` (``device`` among ``kw``; None means
+    "cuda")."""
+    from imagetransformations_tpu_torch.pipeline.chain import build_chain_fn
+
+    return build_chain_fn(chain, **kw)(images, generator)
+
+
 def apply_all_transformations(
     images,
     generator: torch.Generator | int,

@@ -17,22 +17,28 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from imagetransformations_tpu_torch.core.grids import linspace_f32
+
 F32 = torch.float32
 
 
 def ece(probs: torch.Tensor, labels: torch.Tensor, n_bins: int = 10) -> torch.Tensor:
     """Expected calibration error over max-prob bins (ece.py:49-61); the
-    binning lives in ``calibration_bins``."""
+    binning lives in ``calibration_bins``. The bin weights are the counts
+    times f32(1 / n), as XLA computes JAX's ``count / n`` (and CUDA's
+    division by a scalar does; the CPU's would divide)."""
     count, acc, avg_conf = calibration_bins(probs, labels, n_bins)
-    return torch.sum(count / probs.shape[0] * torch.abs(acc - avg_conf))
+    return torch.sum(count * (1.0 / probs.shape[0]) * torch.abs(acc - avg_conf))
 
 
 def calibration_bins(probs, labels, n_bins: int = 10):
     """Per-bin (count, accuracy, confidence) — swag/metric.py:188-232:
-    equal-width (lo, hi] confidence bins."""
+    equal-width (lo, hi] confidence bins, their edges JAX's
+    (``linspace_f32``) so that a confidence on an edge falls in the same
+    bin as in the JAX package."""
     conf, pred = torch.amax(probs, dim=-1), torch.argmax(probs, dim=-1)
     correct = (pred == labels).to(F32)
-    edges = torch.linspace(0.0, 1.0, n_bins + 1, device=probs.device)
+    edges = linspace_f32(0.0, 1.0, n_bins + 1, device=probs.device)
     idx = torch.clamp(torch.searchsorted(edges, conf.contiguous(), side="left") - 1,
                       0, n_bins - 1)
     onehot = F.one_hot(idx, n_bins).to(F32)

@@ -14,10 +14,10 @@ Counterpart of ``imagetransformations_tpu/workflows.py``. Ported so far:
 - ``refinement_pipeline`` <- pipeline/cifar_iterative_{mc,ms,ds}.py: metric
   -> Youden threshold -> reverse-FGSM refinement of the flagged inputs ->
   re-evaluation.
+- ``tent_sweep``        <- fall_2025/TENT_Pipelines.py:305-408: corruption x
+  severity x {baseline, TENT protocols} accuracy matrix.
 - ``swag_pipeline``     <- attacks/cifar10-unvertainty/swag/cifar_swag.py:
   collection -> weight samples -> BMA evaluation with uncertainty.
-
-``tent_sweep`` waits for the port's ``adapt.tent`` (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -329,6 +329,75 @@ def refinement_pipeline(
         "refine_iters": int(iters),
         **flip_analysis(logits, logits_after, y),
     }
+
+
+def tent_sweep(
+    model, corruptions, severities, clean_images_u8, labels, to_model_space,
+    seed: int = 0, lr=2.5e-4, batch_size: int = 256,
+    protocols=("baseline", "continuous", "reset", "conditional"),
+    image_entropy_threshold: float = 1.16, model_apply_eval=None, cell_draws=None,
+    device: str | torch.device | None = None,
+):
+    """Corruption x severity x protocol accuracy matrix (TENT_Pipelines.py
+    :305-408): ``result[corruption][severity][protocol]``.
+
+    Each cell corrupts the clean set with ``evalx.harness.corrupt`` and its
+    own generator, ``corruption_generator(seed, name, severity)``, or with
+    the explicit draws ``cell_draws(name, severity)`` returns (as
+    ``corruption_sweep`` does); cuts it into batches of ``batch_size`` (the
+    last may be ragged), each a ``(model_space, raw_u8)`` tuple so that the
+    'conditional' protocol's pixel-entropy gate sees the corrupted images;
+    and runs each protocol from ``model``'s own parameters
+    (``adapt.tent.evaluate_with_tent``; the module is not changed).
+
+    'baseline' is the un-adapted accuracy: ``model_apply_eval(x) -> logits``
+    (the eval-mode forward with the running statistics, as the reference's
+    ``evaluate_baseline``, TENT_Pipelines.py:146-160), or without it the
+    batch-statistics forward of each batch, which already holds TENT's
+    main lever (BatchNorm recalibrated on the corrupted batch) and so
+    understates the adapted-vs-baseline gap. ``lr`` is one float or a
+    ``{protocol: lr}`` dict; the reference uses 2.5e-4 for continuous and
+    1e-3 for reset and conditional (TENT_Pipelines.py:353-366). Runs on
+    ``device`` (None means "cuda", which raises without a GPU); ``model``
+    must be there.
+    """
+    from imagetransformations_tpu_torch.adapt.tent import batch_stats_forward, evaluate_with_tent
+    from imagetransformations_tpu_torch.core.precision import full_f32
+    from imagetransformations_tpu_torch.evalx.harness import corrupt
+
+    dev = entry_device(device, "tent_sweep")
+    x, y = to_device(clean_images_u8, dev), to_device(labels, dev)
+    if model_apply_eval is None:
+        params = dict(model.named_parameters())
+        forward = batch_stats_forward(model)
+        model_apply_eval = lambda xb: forward(params, xb)  # noqa: E731
+    results: dict = {}
+    for name in corruptions:
+        results[name] = {}
+        for sev in severities:
+            if cell_draws is None:
+                imgs = corrupt(x, name, sev, corruption_generator(seed, name, sev, dev))
+            else:
+                imgs = corrupt(x, name, sev, None, **{
+                    k: to_device(v, dev) for k, v in cell_draws(name, sev).items()})
+            xs = to_model_space(imgs)
+            starts = range(0, xs.shape[0], batch_size)
+            batches = [(xs[i: i + batch_size], imgs[i: i + batch_size]) for i in starts]
+            lbatches = [y[i: i + batch_size] for i in starts]
+            row = {}
+            for proto in protocols:
+                if proto == "baseline":
+                    with torch.no_grad(), full_f32():
+                        correct = sum(torch.sum(torch.argmax(model_apply_eval(xb), -1) == yb)
+                                      for (xb, _), yb in zip(batches, lbatches))
+                    row[proto] = int(correct) / max(int(xs.shape[0]), 1)
+                else:
+                    row[proto] = evaluate_with_tent(
+                        model, batches, lbatches,
+                        lr=float(lr[proto] if isinstance(lr, dict) else lr), protocol=proto,
+                        image_entropy_threshold=image_entropy_threshold, device=dev)
+            results[name][sev] = row
+    return results
 
 
 def swag_pipeline(

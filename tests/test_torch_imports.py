@@ -15,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "imagetransformations_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "imagetransformations_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "imagetransformations_tpu")
 
 
 def _port_files():
@@ -23,7 +23,8 @@ def _port_files():
                                          ROOT / "tools" / "profile_torch_port.py",
                                          ROOT / "tools" / "time_blur.py",
                                          ROOT / "tools" / "time_resample.py",
-                                         ROOT / "tools" / "run_uq_phases.py"]
+                                         ROOT / "tools" / "run_uq_phases.py",
+                                         ROOT / "tools" / "run_adapt_phases.py"]
 
 
 def _imported(tree):
@@ -59,7 +60,9 @@ def test_port_files_found():
                    "evalx/harness.py", "evalx/report.py", "utils/demo.py",
                    "uq/mc.py", "uq/swag.py", "uq/sgld.py", "uq/laplace.py", "uq/knn.py",
                    "evalx/analysis.py", "attacks/fgsm.py", "attacks/pgd.py",
-                   "adapt/refine.py", "utils/checkpoint.py"):
+                   "adapt/refine.py", "utils/checkpoint.py", "adapt/tent.py",
+                   "adapt/conditional.py", "adapt/tta.py", "adapt/matta.py", "adapt/posthoc.py",
+                   "adapt/augmix.py", "adapt/_optim.py", "utils/profiling.py"):
         assert f"imagetransformations_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 
@@ -80,7 +83,7 @@ def test_forbidden_rule_spares_the_port_itself():
 def test_port_runs_with_jax_blocked():
     code = """
 import sys
-for name in ("jax", "jaxlib", "imagetransformations_tpu"):
+for name in ("jax", "jaxlib", "optax", "sklearn", "imagetransformations_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import numpy as np
 import imagetransformations_tpu_torch as port
@@ -161,6 +164,45 @@ assert workflows.refinement_pipeline(net, space, x[:, :32, :32], np.zeros(1, np.
                                      max_iters=1, device="cpu")["n"] == 1
 assert analysis.flip_analysis(torch.zeros(1, 2), torch.zeros(1, 2), y0)["n"] == 1
 assert mc.bald(torch.zeros(2, 1, 3)).shape == (1,) and sgld.SGLD and laplace.fit and knn.top_k_indices
+from imagetransformations_tpu_torch.adapt import augmix, conditional, matta, posthoc, tent, tta
+from imagetransformations_tpu_torch.utils import profiling
+x8 = np.repeat(x[:, :32, :32], 2, axis=0)
+x8[1] = 7  # a flat image: below the entropy gate
+xm8 = space(torch.from_numpy(x8))
+y8 = torch.zeros(2, dtype=torch.int64)
+batches = [(xm8, torch.from_numpy(x8))] * 2
+for proto in ("continuous", "reset", "conditional"):
+    assert 0.0 <= tent.evaluate_with_tent(net, batches, [y8, y8], protocol=proto, device="cpu") <= 1
+sweep = workflows.tent_sweep(net, ("brightness",), (1,), x8, y8, space, batch_size=1,
+                             device="cpu")
+assert sorted(sweep["brightness"][1]) == ["baseline", "conditional", "continuous", "reset"]
+res = conditional.conditional_transform_eval(net, space, x8, y8, chain, device="cpu")
+assert res["n_flagged"] == 1
+probs = tta.predict_with_tta(lambda u8: net(space(u8)), x8, torch.Generator(), device="cpu")
+vp = tta.adaptive_view_probs(lambda u8: net(space(u8)), x8, torch.Generator(), device="cpu")
+assert probs.shape == (2, 10) and tta.fit_adaptive_weights(vp, y8).shape == (5,)
+assert matta.fit_matta_weights(vp, y8, steps=2).shape == (5, 10)
+iso = posthoc.IsotonicRegressionCalibration().fit(probs, y8)
+assert iso.calibrate(probs).shape == (2, 10)
+assert posthoc.EnsembleTemperatureScaling().fit(net(xm8), y8, steps=2).weights.shape == (5,)
+assert augmix.augmix(x8, torch.Generator(), device="cpu").shape == x8.shape
+assert profiling.op_throughput(lambda a: a + 1, torch.from_numpy(x8), 1, 2)["ms_per_op"] > 0
+from imagetransformations_tpu_torch import core, evalx, pipeline, utils
+names = {port: ("as_batch", "as_float", "to_uint8_rint", "to_uint8_trunc"),
+         core: ("as_batch", "as_float", "to_uint8_rint", "to_uint8_trunc", "restore_layout",
+                "PARAM_GRIDS", "ParamGrid", "sample_params", "sample_all"),
+         pipeline: ("Chain", "OpSpec", "build_chain_fn", "apply_all_transformations",
+                    "transform_batch", "load_folder_images", "prefetch_to_device",
+                    "shard_files_for_host"),
+         evalx: ("CORRUPTIONS", "corrupt", "evaluate_batched", "corruption_sweep",
+                 "analyze_uncertainty_thresholds", "evaluate_sharded"),
+         utils: ("FrameworkConfig", "RefineConfig", "SweepConfig", "save_checkpoint",
+                 "load_checkpoint", "op_throughput", "trace"),
+         adapt: ("augmix", "conditional", "matta", "posthoc", "refine", "tent", "tta")}
+missing = [f"{m.__name__}.{n}" for m, ns in names.items() for n in ns if not hasattr(m, n)]
+assert not missing, missing
+assert sorted(core.sample_all(torch.Generator(), 3)) == sorted(port.PARAM_GRIDS)
+assert pipeline.transform_batch(x, chain, device="cpu").shape == x.shape
 print("ok")
 """
     env = dict(os.environ)
