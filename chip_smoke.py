@@ -77,7 +77,16 @@ protocols, the entropy-gated main-path chain at 10000x32x32 and
 stacks, adaptive TTA with SLSQP, MATTA / VATTA, the mixing ratio, every
 post-hoc calibrator (ECE, NLL, Brier before and after) and AugMix at
 10000x32x32 and 32x512x512 on kernel #12; each holds itself to the CPU on
-64 images and fails if its kernels were not launched. These six phases
+64 images and fails if its kernels were not launched. Then, on one demo
+ResNet-20, phase ``patches`` trains the universal patch (40 batches of 256
+under noise) and the restorative patches (1000 images x 20 Adam steps) and
+times ``adet_operator`` at 10000x32x32; phase ``evolution`` runs
+``evolutionary_search`` at JAX's defaults over 10 000 images (#3 through
+the blur genes); phase ``sharding`` runs ``sharded_chain_fn`` (#1, #3, #4,
+#5) and ``sharded_gaussian_blur`` (#6) at 32x512x512 on 4 shards of one
+card, 0 LSB against one device, ``evaluate_sharded``, the sweep's
+``mesh=`` and one ``sweep --data-parallel`` row (``tools/run_mesh_phases.py``
+runs these three alone). These nine phases
 run under the flags a user has by default, TF32 on for cuDNN (here
 cuBLAS's too), so the port's scoped true f32 (``core.precision.full_f32``)
 is what holds their results to the CPU's; the rest of the script runs
@@ -2320,6 +2329,426 @@ def tta_phase(torch, mk, xtr, ytr, xte, yte) -> dict:
     return launches
 
 
+# phases patches, evolution and sharding: the reference's angelic-patch
+# settings (angellic.py: 20x20, sign-SGD lr 0.01; the per-image patch 8x8,
+# Adam 0.1, 20 iterations), the images each call takes, the card-against-CPU
+# cases, and the sharded runs' mesh and angles. Budgets, card against CPU:
+# sign-SGD moves a value by lr a step, and a gradient near 0 can take the
+# other sign, so the universal patch may differ on a few values (each
+# within 2 lr a step); Adam moves a value ~lr a step whatever its
+# gradient's size, so where the gradient of a confident image's entropy is
+# ~0 the two devices' steps part by up to 2 lr: the restorative patches are
+# held by the share of values beyond 1e-4 (6.1% on the H100, first run),
+# by 2 lr a step, and by the patched images' mean entropy (1e-3
+# relative); the warps and the fitness chains compute the same f32
+# ops on both devices (expected 0); a fitness within 1e-3 relative (the
+# MSP threshold can flip an image whose MSP sits at 0.8).
+PATCH_BATCHES, PATCH_BATCH, PATCH_HW, PATCH_LR = 40, 256, (20, 20), 0.01
+RESTORE_IMAGES, RESTORE_ITERS, RESTORE_LR = 1000, 20, 0.1
+PATCH_CPU_IMAGES, PATCH_CPU_STEPS, RESTORE_CPU_ITERS = 64, 3, 5
+PATCH_SIGN_SHARE, RESTORE_SHARE, RESTORE_ABS, MASK_SHARE, WARP_ABS = 0.02, 0.1, 1e-4, 0.995, 1e-5
+RESTORE_ENTROPY_REL = 1e-3
+FITNESS_REL = 1e-3
+MESH_SLOTS, MESH_ANGLE = 4, 12.5
+SHARD_EVAL_REL_ACC, SHARD_AUROC_ABS = 2e-4, 1e-4
+MESH_SWEEP_CELLS = (("gaussian_noise", 3), ("contrast", 3), ("rotation", 3))
+
+
+def demo_model(torch, xtr, ytr):
+    """The demo ResNet-20 (``utils.demo.get_model``, trained on the card on
+    512 of the synthetic train images) in eval mode: (model, space)."""
+    from imagetransformations_tpu_torch.utils import demo
+
+    _, space, model = demo.get_model(xtr[:512], ytr[:512], device="cuda", seed=SEED)
+    model.eval()
+    return model, space
+
+
+def nhwc_model(model):
+    """The patches' model_fn: an NHWC f32 batch in [0, 1] -> logits."""
+    from imagetransformations_tpu_torch.models.resnet import normalize_cifar
+
+    return lambda x01: model(normalize_cifar(x01).permute(0, 3, 1, 2))
+
+
+def accuracy_entropy(torch, fn, x01, y) -> tuple:
+    """(accuracy, mean entropy in nats) of ``fn`` on ``x01`` in batches of 1000."""
+    from imagetransformations_tpu_torch.core.precision import full_f32
+
+    logits = []
+    with torch.no_grad(), full_f32():
+        for i in range(0, len(x01), 1000):
+            logits.append(fn(x01[i: i + 1000]))
+    lg = torch.cat(logits)
+    logp = torch.log_softmax(lg, -1)
+    ent = float(-(logp.exp() * logp).sum(-1).mean())
+    return float((lg.argmax(-1) == y).float().mean()), ent
+
+
+def patches_phase(torch, mk, model, space, xtr, ytr, xte, yte) -> dict:
+    """``adapt.patches`` on the card with the demo ResNet-20 on synthetic
+    images (no pretrained weights in the repository): ``train_universal_patch``
+    (20x20, sign-SGD lr 0.01, 40 batches of 256 training images under
+    Gaussian noise 0.1 drawn on the card), with the accuracy and mean
+    entropy of the 10 000 noisy test images with the 0.5-gray patch and with
+    the trained one; ``restorative_patches_per_image`` on 1000 test images
+    (8x8, 20 Adam steps of 0.1), entropy and accuracy before and after;
+    ``adet_operator`` on the 10 000 test images (ms; the share of pixels the
+    patch covers); ms of each (CUDA events), peak device memory. Then card
+    against CPU on 64 images with the same numpy draws (the CPU a copy of
+    the model): ``adet_operator`` and ``apply_transformed_patch`` (the mask
+    equal on >= 99.5% of pixels, values within 1e-5 elsewhere; expected 0),
+    3 sign-SGD steps (<= 2% of the patch's values differ, each within 2 lr a
+    step), 5 Adam steps of the restorative patches (<= 10% of values beyond
+    1e-4, each within 2 lr a step, the patched images' mean entropy within
+    1e-3 relative). No kernel of csrc/ runs here (JAX runs patches in XLA; the warps
+    are the plain ``affine_warp``). Fails otherwise (after printing the
+    row)."""
+    import copy
+
+    import numpy as np
+
+    from imagetransformations_tpu_torch.adapt import patches as pa
+    from imagetransformations_tpu_torch.models.resnet import to_unit
+
+    fn = nhwc_model(model)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def noisy(x, gen):
+        return torch.clamp(x + 0.1 * torch.randn(x.shape, generator=gen, device=x.device), 0.0,
+                           1.0)
+
+    xtr01, xte01 = to_unit(torch.from_numpy(xtr).cuda()), to_unit(torch.from_numpy(xte).cuda())
+    ytr_d, yte_d = torch.from_numpy(ytr).cuda().long(), torch.from_numpy(yte).cuda().long()
+    batches = [xtr01[i * PATCH_BATCH: (i + 1) * PATCH_BATCH] for i in range(PATCH_BATCHES)]
+    labels = [ytr_d[i * PATCH_BATCH: (i + 1) * PATCH_BATCH] for i in range(PATCH_BATCHES)]
+    row = {"phase": "patches", "model": "resnet20 (demo recipe)"}
+    reset_launches(mk)
+    torch.cuda.reset_peak_memory_stats()
+    ms, patch = once_ms(torch, lambda: pa.train_universal_patch(
+        fn, batches, labels, patch_hw=PATCH_HW, lr=PATCH_LR, corruption_fn=noisy, generator=g,
+        device="cuda"))
+    test_noisy = noisy(xte01, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    gray = torch.full_like(patch, 0.5)
+    row["universal"] = {
+        "batches": PATCH_BATCHES, "batch": PATCH_BATCH, "patch_hw": list(PATCH_HW), "ms": ms,
+        "ms_a_step": ms / PATCH_BATCHES,
+        "values_moved": float((patch != 0.5).float().mean()),
+        "noisy_test_gray_patch": accuracy_entropy(torch, fn, pa.apply_patch(test_noisy, gray), yte_d),
+        "noisy_test_trained_patch": accuracy_entropy(torch, fn, pa.apply_patch(test_noisy, patch),
+                                                     yte_d)}
+    xr, yr = xte01[:RESTORE_IMAGES], yte_d[:RESTORE_IMAGES]
+    ms, (patched, _) = once_ms(torch, lambda: pa.restorative_patches_per_image(
+        fn, xr, iters=RESTORE_ITERS, lr=RESTORE_LR, device="cuda"))
+    row["restorative"] = {"images": RESTORE_IMAGES, "iters": RESTORE_ITERS, "ms": ms,
+                          "ms_an_iteration": ms / RESTORE_ITERS,
+                          "before": accuracy_entropy(torch, fn, xr, yr),
+                          "after": accuracy_entropy(torch, fn, patched, yr)}
+    adet = lambda: pa.adet_operator(xte01, patch, torch.Generator(device="cuda").manual_seed(3))  # noqa: E731
+    out = adet()
+    if tuple(out.shape) != tuple(xte01.shape) or not bool(((out >= 0) & (out <= 1)).all()):
+        fail(f"patches: adet_operator gave {tuple(out.shape)} outside [0, 1]")
+    # the share of pixels the patch covers: the operator without its
+    # corruption pool on images of -1, below any patch value
+    placed = pa.adet_operator(-torch.ones_like(xte01), patch,
+                              torch.Generator(device="cuda").manual_seed(3), corruption_fns=None)
+    row["adet"] = {"images": len(xte01), "ms": time_ms(torch, adet, 5),
+                   "covered_share": float((placed >= 0).any(-1).float().mean())}
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row["launches"] = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+    # card against CPU on 64 images, the same numpy draws
+    k, h, w = PATCH_CPU_IMAGES, 32, 32
+    rng = np.random.default_rng([SEED, 17])
+    cpu_fn = nhwc_model(copy.deepcopy(model).cpu())
+    x64 = xte01[:k].cpu()
+    draws = {"corruption_idx": rng.integers(0, 2, k), "scale": rng.uniform(0.8, 1.2, k),
+             "angle": rng.uniform(-15, 15, k), "shear": rng.uniform(-0.15, 0.15, k),
+             "brightness": rng.uniform(0.8, 1.2, k), "y_u": rng.uniform(0, 1, k),
+             "x_u": rng.uniform(0, 1, k),
+             "noise": rng.standard_normal((k, h, w, 3)).astype(np.float32)}
+    checks = {}
+    p_cpu = patch.cpu()
+    neg = -torch.ones_like(x64)
+    mc = pa.adet_operator(neg.cuda(), patch, corruption_fns=None, **draws).cpu() >= 0
+    mq = pa.adet_operator(neg, p_cpu, corruption_fns=None, **draws) >= 0
+    same = mc == mq
+    checks["adet_mask_equal_share"] = float(same.float().mean())
+    d = (pa.adet_operator(x64.cuda(), patch, **draws).cpu()
+         - pa.adet_operator(x64, p_cpu, **draws)).abs()
+    checks["adet_max_abs"] = float(d[same].max())
+    tw = dict(scale=0.93, angle=-11.0, y0=5, x0=9)
+    checks["transformed_patch_max_abs"] = float(
+        (pa.apply_transformed_patch(x64.cuda(), patch[:8, :8], **tw).cpu()
+         - pa.apply_transformed_patch(x64, p_cpu[:8, :8], **tw)).abs().max())
+    xs = [xtr01[i * k: (i + 1) * k] for i in range(PATCH_CPU_STEPS)]
+    ys = [ytr_d[i * k: (i + 1) * k] for i in range(PATCH_CPU_STEPS)]
+    noise = [torch.from_numpy(rng.standard_normal((k, h, w, 3)).astype(np.float32))
+             for _ in range(PATCH_CPU_STEPS)]
+
+    def from_list(queue):
+        return lambda x, gen: torch.clamp(x + 0.1 * queue.pop(0).to(x.device), 0.0, 1.0)
+
+    uc = pa.train_universal_patch(fn, xs, ys, patch_hw=PATCH_HW, lr=PATCH_LR,
+                                  corruption_fn=from_list(list(noise)), device="cuda").cpu()
+    uq = pa.train_universal_patch(cpu_fn, [t.cpu() for t in xs], [t.cpu() for t in ys],
+                                  patch_hw=PATCH_HW, lr=PATCH_LR,
+                                  corruption_fn=from_list(list(noise)), device="cpu")
+    du = (uc - uq).abs()
+    checks["universal_differing_share"] = float((du > 0).float().mean())
+    checks["universal_max_abs"] = float(du.max())
+    xc, rc = pa.restorative_patches_per_image(fn, x64.cuda(), iters=RESTORE_CPU_ITERS,
+                                              lr=RESTORE_LR, device="cuda")
+    xq, rq = pa.restorative_patches_per_image(cpu_fn, x64, iters=RESTORE_CPU_ITERS,
+                                              lr=RESTORE_LR, device="cpu")
+    dr = (rc.cpu() - rq).abs()
+    checks["restorative_share_beyond_1e-4"] = float((dr > RESTORE_ABS).float().mean())
+    checks["restorative_max_abs"] = float(dr.max())
+    y64 = yte_d[:k]
+    ent_c = accuracy_entropy(torch, fn, xc, y64)[1]
+    ent_q = accuracy_entropy(torch, cpu_fn, xq, y64.cpu())[1]
+    checks["restorative_entropy_card_cpu"] = [ent_c, ent_q]
+    checks["restorative_entropy_rel"] = abs(ent_c - ent_q) / abs(ent_q)
+    row["vs_cpu"] = {"images": k, **checks}
+    emit(row)
+    if (checks["adet_mask_equal_share"] < MASK_SHARE or checks["adet_max_abs"] > WARP_ABS
+            or checks["transformed_patch_max_abs"] > WARP_ABS
+            or checks["universal_differing_share"] > PATCH_SIGN_SHARE
+            or checks["universal_max_abs"] > 2 * PATCH_LR * PATCH_CPU_STEPS + 1e-6
+            or checks["restorative_share_beyond_1e-4"] > RESTORE_SHARE
+            or checks["restorative_max_abs"] > 2 * RESTORE_LR * RESTORE_CPU_ITERS
+            or checks["restorative_entropy_rel"] > RESTORE_ENTROPY_REL):
+        fail(f"patches: card against CPU on {k} images: {checks}")
+    if not row["universal"]["values_moved"] > 0:
+        fail("patches: the universal patch did not move")
+    return row["launches"]
+
+
+def evolution_phase(torch, mk, model, space, xte) -> dict:
+    """``adapt.evolution.evolutionary_search`` on the card at JAX's defaults
+    (population 16, 4 generations, elite 4, seed 0) over the 10 000 test
+    images with the demo ResNet-20: wall s (host clock, synchronized), the
+    fitness evaluations (the module-level ``fitness_fn`` counted), the best
+    genome, the kernels' launches (counters reset just before, read just
+    after: #3, ``rgb_blur_rotate`` in stream mode at angle 0, must run for
+    the blur genes). Then ``fitness_fn`` card against CPU on 64 images for
+    each of the 16 noise-free gene combos (within 1e-3 relative), and the
+    gene-by-gene route of blur 1.0 -> sharpness 1.5 on the 10 000 images
+    against its plain composition (#3's plain version, then the plain
+    sharpen): 0 LSB, one launch of #3. Fails otherwise."""
+    import copy
+
+    from imagetransformations_tpu_torch.adapt import evolution as ev
+    from imagetransformations_tpu_torch.ops import stencil as st
+
+    x = torch.from_numpy(xte).cuda()
+    calls = []
+    real = ev.fitness_fn
+
+    def counted(*args, **kwargs):
+        calls.append(list(args[3].genome))
+        return real(*args, **kwargs)
+
+    ev.fitness_fn = counted
+    try:
+        reset_launches(mk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = ev.evolutionary_search(model, space, x, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ev.fitness_fn = real
+    launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+    blur_genes = sum(op == "blur" for genome in calls for op, _ in genome)
+    row = {"phase": "evolution", "images": len(x), "population": 16, "generations": 4,
+           "elite": 4, "wall_s": wall, "fitness_evaluations": len(calls),
+           "s_a_fitness": wall / max(len(calls), 1), "blur_genes_evaluated": blur_genes,
+           "best": {"genome": [list(gn) for gn in best.genome], "fitness": best.fitness},
+           "launches": launches}
+    # fitness, card against CPU
+    cpu_model = copy.deepcopy(model).cpu()
+    x64 = xte[:64]
+    worst = 0.0
+    for gene in ev._GENE_COMBOS:
+        if "noise" in gene[0]:
+            continue
+        ind = ev.Individual([gene])
+        fc = ev.fitness_fn(model, space, x64, ind, device="cuda")
+        fq = ev.fitness_fn(cpu_model, space, x64, ind, device="cpu")
+        worst = max(worst, abs(fc - fq) / abs(fq))
+    row["fitness_max_rel_vs_cpu"] = worst
+    # the gene-by-gene route against its plain composition
+    ind = ev.Individual([("blur", 1.0), ("sharpness", 1.5)])
+    n, h, w, _ = x.shape
+    before = mk.LAUNCHES["rgb_blur_rotate"]
+    got = ev.transform_genome(x, ind, device="cuda")
+    genes_launches = mk.LAUNCHES["rgb_blur_rotate"] - before
+    taps, p, k1, f1, k2, f2 = mk._params(h, w, 1.0, 0.0, x.device)
+    want = st.sharpen(mk.rgb_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0, False, False, True),
+                      1.5)
+    row["genes_vs_plain_max_lsb"] = max_lsb(torch, got, want)
+    row["genes_rgb_blur_rotate_launches"] = genes_launches
+    emit(row)
+    if (len(calls) != 80 or not launches.get("rgb_blur_rotate") or worst > FITNESS_REL
+            or row["genes_vs_plain_max_lsb"] != 0 or genes_launches != 1
+            or not 0.5 <= best.fitness <= 1.0):
+        fail(f"evolution: {len(calls)} fitness calls, launches {launches}, fitness card "
+             f"against CPU {worst}, gene route {row['genes_vs_plain_max_lsb']} LSB "
+             f"({genes_launches} launches of #3), best {best}")
+    return launches
+
+
+def sharding_phase(torch, mk, model, space, xte, yte) -> dict:
+    """The one-process mesh on the card: ``data_mesh(4, device="cuda:0")``
+    (4 shards on the one H100), and every visible device as well where
+    there are more. Per mesh: ``sharded_chain_fn`` at 32x512x512x3 for blur
+    1.5 -> rotation 12.5 -> grayscale (#1), the same with per-image angles
+    in -22.5..22.5 whose first shard lies within 4.5 degrees (#4, each
+    shard with the batch's budget 25), and the RGB forms of both (#3 in
+    stream mode, #5), each 0 LSB against the one-device chain and each
+    kernel launched once a shard; ``sharded_gaussian_blur`` at r 1.5 (rows
+    over the shards, halo rows copied between slots): 0 LSB against
+    ``gaussian_blur``, #6 once a shard; ``evaluate_sharded`` against
+    ``evaluate_batched`` on the 10 000 test images (logits within the
+    models' card budget, 1e-3 of max(1, max |logit|); accuracy within the
+    images whose top two logits are that close); ``corruption_sweep(mesh=)``
+    on gaussian_noise, contrast and rotation at severity 3 against the
+    one-device sweep (accuracy within 2e-4, AUROC within 1e-4: the shards'
+    forwards run batches of 2500, the one-device sweep's 256); one ``sweep
+    --data-parallel=true --mesh-slots=4`` CLI row (256 images, severity 1).
+    ms of each against the one-device run (CUDA events; the shards run the
+    same kernels one after another, so no speed-up is expected on one
+    card). Returns the launches of the sharded runs. Fails otherwise."""
+    import contextlib
+    import io as _io
+    import tempfile
+
+    import numpy as np
+
+    from imagetransformations_tpu_torch.__main__ import main as cli_main
+    from imagetransformations_tpu_torch.evalx import harness as hs
+    from imagetransformations_tpu_torch.ops.sharded_stencil import sharded_gaussian_blur
+    from imagetransformations_tpu_torch.ops.stencil import gaussian_blur
+    from imagetransformations_tpu_torch.pipeline import sharding as shd
+    from imagetransformations_tpu_torch.pipeline.chain import OpSpec, build_chain_fn
+
+    meshes = [shd.data_mesh(MESH_SLOTS, device="cuda:0")]
+    if torch.cuda.device_count() > 1:
+        meshes.append(shd.data_mesh())
+    x = images(torch, SHAPE_512, SEED + 120)
+    n = SHAPE_512[0]
+    rng = np.random.default_rng([SEED, 19])
+    angles = rng.uniform(-22.5, 22.5, n).astype(np.float32)
+    angles[: n // MESH_SLOTS] = rng.uniform(-4.5, 4.5, n // MESH_SLOTS)
+    angles[-1] = 22.5
+    blur = OpSpec("blur", {"radius": BLUR_RADIUS})
+    chains = [
+        ("luma_blur_rotate", [blur, OpSpec("rotation", {"angle": MESH_ANGLE}), OpSpec("grayscale")]),
+        ("luma_blur_rotate_traced", [blur, OpSpec("rotation", {"angle": angles}),
+                                     OpSpec("grayscale")]),
+        ("rgb_blur_rotate", [blur, OpSpec("rotation", {"angle": MESH_ANGLE})]),
+        ("rgb_blur_rotate_traced", [blur, OpSpec("rotation", {"angle": angles})]),
+    ]
+    total = {}
+    rows = []
+
+    def counted(run, kernel, slots):
+        reset_launches(mk)
+        out = run()
+        torch.cuda.synchronize()
+        got = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+        if got.get(kernel) != slots:
+            fail(f"sharding: {kernel} launched {got.get(kernel)} times for {slots} shards: {got}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return out, got
+
+    for mesh in meshes:
+        slots = mesh.size
+        row = {"phase": "sharding", "mesh": [str(d) for d in mesh.devices],
+               "shape": [*SHAPE_512, 3], "runs": []}
+        for kernel, chain in chains:
+            sharded = shd.sharded_chain_fn(chain, mesh)
+            one = build_chain_fn(chain, device="cuda")
+            out, got = counted(lambda: sharded(x).gather(), kernel, slots)
+            err = max_lsb(torch, out, one(x))
+            row["runs"].append({"run": f"sharded_chain_fn ({kernel})", "launches": got,
+                                "max_lsb_vs_one_device": err,
+                                "ms": time_ms(torch, lambda: sharded(x), 10),
+                                "one_device_ms": time_ms(torch, lambda: one(x), 10)})
+            if err != 0:
+                fail(f"sharding: sharded_chain_fn ({kernel}) differs by {err} LSB")
+        out, got = counted(lambda: sharded_gaussian_blur(x, BLUR_RADIUS, mesh).gather(),
+                           "blur_separable", slots)
+        err = max_lsb(torch, out, gaussian_blur(x, BLUR_RADIUS))
+        row["runs"].append({
+            "run": "sharded_gaussian_blur r 1.5", "launches": got, "max_lsb_vs_one_device": err,
+            "ms": time_ms(torch, lambda: sharded_gaussian_blur(x, BLUR_RADIUS, mesh), 10),
+            "one_device_ms": time_ms(torch, lambda: gaussian_blur(x, BLUR_RADIUS), 10)})
+        if err != 0:
+            fail(f"sharding: sharded_gaussian_blur differs by {err} LSB")
+        # evaluation over the mesh (each shape warmed up first: cuDNN picks
+        # its algorithms at a batch size's first call)
+        hs.evaluate_sharded(model, space, xte, yte, mesh)
+        hs.evaluate_batched(model, space, xte, yte, device="cuda")
+        ms_s, res = once_ms(torch, lambda: hs.evaluate_sharded(model, space, xte, yte, mesh))
+        ms_1, ref = once_ms(torch, lambda: hs.evaluate_batched(model, space, xte, yte,
+                                                               device="cuda"))
+        budget = logits_budget(torch, res["logits"], ref["logits"].float().cpu(),
+                               "evaluate_sharded against evaluate_batched")
+        d_acc = abs(res["accuracy"] - ref["accuracy"])
+        if d_acc > budget["argmax_differs_close_top2"] / len(xte) + 1e-12:
+            fail(f"sharding: evaluate_sharded accuracy {res['accuracy']} against {ref['accuracy']}")
+        row["evaluate"] = {"images": len(xte), "accuracy": res["accuracy"],
+                           "one_device_accuracy": ref["accuracy"], "ms": ms_s,
+                           "one_device_ms": ms_1, **budget}
+        # the sweep's mesh path on three cells
+        reset_launches(mk)
+        sweep = {}
+        for name, sev in MESH_SWEEP_CELLS:
+            kw = dict(seed=SEED, corruption_names=(name,), severities=(sev,), device="cuda")
+            hs.corruption_sweep(model, space, xte, yte, mesh=mesh, **kw)  # warm-up
+            reset_launches(mk)
+            ms_s, got_c = once_ms(torch, lambda: hs.corruption_sweep(
+                model, space, xte, yte, mesh=mesh, **kw)[name][sev])
+            sweep_launches = {k: v for k in mk.LAUNCHES if (v := row_launches(mk.LAUNCHES, k))}
+            ms_1, want_c = once_ms(torch, lambda: hs.corruption_sweep(model, space, xte, yte,
+                                                                      **kw)[name][sev])
+            da = abs(got_c["accuracy"] - want_c["accuracy"])
+            du = max(abs(got_c["auroc"][m] - want_c["auroc"][m]) for m in want_c["auroc"])
+            sweep[f"{name} {sev}"] = {"accuracy": got_c["accuracy"], "d_accuracy": da,
+                                      "max_d_auroc": du, "ms": ms_s, "one_device_ms": ms_1}
+            if da > SHARD_EVAL_REL_ACC or du > SHARD_AUROC_ABS:
+                fail(f"sharding: sweep cell {name} {sev} on the mesh: |d accuracy| {da}, "
+                     f"|d AUROC| {du}")
+            for k, v in sweep_launches.items():
+                total[k] = total.get(k, 0) + v
+            reset_launches(mk)
+        row["sweep_cells"] = sweep
+        rows.append(row)
+    # one CLI row: the sweep over a mesh of 4 slots on the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        argv = ["sweep", f"--data-root={tmp}", f"--out-dir={tmp}/out", "--severities=1",
+                "--device=cuda", "--data-parallel=true", f"--mesh-slots={MESH_SLOTS}", "--stats"]
+        buf = _io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue().strip().splitlines()
+    line = f"data-parallel sweep over {MESH_SLOTS} devices"
+    cli_row = {"phase": "sharding", "command": " ".join(argv[:1] + argv[3:]), "wall_s": wall,
+               "printed_mesh_line": line in text, "stats": json.loads(text[-1])}
+    if not cli_row["printed_mesh_line"] or cli_row["stats"]["cells"] != 15:
+        fail(f"sharding: the sweep --data-parallel command printed {text[:3]} ... {text[-1]}")
+    for row in rows:
+        row["launches"] = dict(total)
+        emit(row)
+    emit(cli_row)
+    return total
+
+
 def mode_row(torch, mode, shape, run, want, b, launches) -> dict:
     err = max_lsb(torch, run(), want)
     if err != 0:
@@ -3077,6 +3506,16 @@ def main() -> int:
         # gated chain runs #1 / #2, AugMix and the sweep's rotation cells #12
         for phase in (tent_phase, tta_phase):
             for k, v in phase(torch, mk, xtr, ytr, xte, yte).items():
+                for e in entries:
+                    if e["name"] == k:
+                        e["launches"] += v
+        # angelic patches, the evolutionary search (#3 through the blur
+        # genes) and the one-process mesh (#1, #3-#6, #12 on 4 shards)
+        model, space = demo_model(torch, xtr, ytr)
+        for launched in (patches_phase(torch, mk, model, space, xtr, ytr, xte, yte),
+                         evolution_phase(torch, mk, model, space, xte),
+                         sharding_phase(torch, mk, model, space, xte, yte)):
+            for k, v in launched.items():
                 for e in entries:
                     if e["name"] == k:
                         e["launches"] += v

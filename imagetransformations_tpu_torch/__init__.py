@@ -28,10 +28,14 @@ last-layer Laplace approximation, deep k-NN), the evaluation harness
 ``analyze_uncertainty_thresholds``) with ``evalx.report`` and
 ``evalx.analysis``; the attacks (FGSM, reverse FGSM, PGD, the minimal
 eps, adversarial training), the reverse-FGSM refinement ``adapt.refine``,
-TENT with its entropy gate, TTA, MATTA, post-hoc calibration and AugMix
-(``adapt``), checkpoints and profiling, the SWAG, refinement and TENT
-workflows; and the ``transform`` / ``chain`` / ``corrupt`` / ``sweep`` /
-``report`` CLI.
+TENT with its entropy gate, TTA, MATTA, post-hoc calibration, AugMix,
+the angelic patches and the evolutionary transform search (``adapt``),
+checkpoints and profiling, the SWAG, refinement and TENT workflows; batch
+sharding over a one-process device mesh (``pipeline.sharding``:
+``sharded_chain_fn``, ``evaluate_sharded`` and the sweep's ``mesh=``) and
+the row-sharded halo blur (``ops.sharded_stencil``); and the ``transform`` /
+``chain`` / ``corrupt`` / ``sweep`` (also ``--data-parallel``) / ``report``
+CLI.
 Hand-written CUDA kernels in ``csrc/``, one or more for each of the JAX
 package's twelve Pallas kernels, carry them on the card; they are built with
 nvcc at first use.
@@ -39,24 +43,26 @@ nvcc at first use.
 - ``core``     : NHWC uint8 batch helpers, u8 quantizations, parameter grids.
 - ``ops``      : elementwise, stencil, noise, histogram, affine warps,
                  PIL resize and LANCZOS scale, composites and the
-                 corruption generators in plain PyTorch; ``ops.hopper``
-                 holds the kernel wrappers, their plain PyTorch versions and
-                 the build.
-- ``pipeline`` : declarative op-chains, the 8-type batch sweep, folder I/O.
+                 corruption generators in plain PyTorch, the row-sharded
+                 halo blur; ``ops.hopper`` holds the kernel wrappers, their
+                 plain PyTorch versions and the build.
+- ``pipeline`` : declarative op-chains, the 8-type batch sweep, folder I/O,
+                 batch sharding over a one-process device mesh.
 - ``models``   : the classifiers (NCHW, true f32: ``core.precision.full_f32``),
                  parameter conversion from and to flax, training steps.
 - ``uq``       : uncertainty scores, calibration and ranking metrics, ODIN,
                  Mahalanobis, MC sampling, SWAG, SGLD, Laplace, k-NN.
 - ``attacks``  : FGSM, reverse FGSM, PGD, adversarial training.
 - ``adapt``    : reverse-FGSM refinement, TENT and its entropy gate, TTA,
-                 MATTA / VATTA, post-hoc calibration, AugMix.
+                 MATTA / VATTA, post-hoc calibration, AugMix, angelic
+                 patches, the evolutionary transform search.
 - ``evalx``    : the corruption dispatch and sweep harness, reports, flip
                  analysis and failure heads.
 - ``utils``    : typed configuration, the demo model of the CLI,
                  checkpoints, profiling.
 """
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 from imagetransformations_tpu_torch.core.grids import PARAM_GRIDS  # noqa: F401
 from imagetransformations_tpu_torch.core.image import (  # noqa: F401

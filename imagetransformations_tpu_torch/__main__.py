@@ -28,14 +28,18 @@ device-to-host copy, encode) as one JSON line. ``--seed`` seeds the
 from it (``workflows.corruption_generator``).
 
 - ``sweep [--data-root=DIR] [--severities=N] [--batch-size=B]
-  [--metrics=a,b] [--out-dir=DIR] [--seed=N] [--device=cuda|cpu] [--stats]``
+  [--metrics=a,b] [--out-dir=DIR] [--seed=N] [--device=cuda|cpu] [--stats]
+  [--data-parallel=true [--mesh-slots=N]]``
   — FINAL_cifar_corrupted.py: the demo ResNet-20 (``utils.demo``: CIFAR-10
   pickles under ``--data-root``, else synthetic data) through the 15
   canonical corruptions at severities 1..N (``evalx.corruption_sweep``, a
   generator a cell from ``--seed``); prints the accuracy / AUROC table and
   writes it as ``sweep.json`` and, with matplotlib, ``auc_{metric}.png`` to
-  ``--out-dir``. ``--data-parallel`` (the JAX sweep over a device mesh) is
-  not ported (ROADMAP A.9) and fails.
+  ``--out-dir``. ``--data-parallel=true`` runs each cell's forward over a
+  one-process device mesh (``pipeline.sharding``): one slot a visible CUDA
+  device, or ``--mesh-slots=N`` slots on the one ``--device``
+  (``--device=cpu --mesh-slots=4`` included); with more than one slot it
+  prints "data-parallel sweep over N devices", as the JAX CLI does.
 - ``report [--data-root=DIR] [--out-dir=DIR] [--seed=N] [--device=cuda|cpu]
   [--stats]`` — the demo model's uncertainty report
   (``workflows.uncertainty_report``): accuracy, each metric's AUROC and
@@ -219,18 +223,19 @@ def cmd_corrupt(argv):
 
 
 def _demo(argv, stats: dict):
-    """The demo model and test data on ``--device`` (``utils.demo``)."""
+    """The demo model (the module itself, so that a mesh can copy it to
+    each device) and test data on ``--device`` (``utils.demo``)."""
     import time
 
     from imagetransformations_tpu_torch.utils.demo import get_data, get_model
 
     xtr, ytr, xte, yte = get_data(_option(argv, "data-root", "./data"), verbose=True)
     t0 = time.perf_counter()
-    model_fn, to_model, _ = get_model(xtr, ytr, device=_option(argv, "device", "cuda"),
-                                      seed=int(_option(argv, "seed", "0")))
+    _, to_model, model = get_model(xtr, ytr, device=_option(argv, "device", "cuda"),
+                                   seed=int(_option(argv, "seed", "0")))
     stats["train_s"] = time.perf_counter() - t0
     stats["images"] = int(len(xte))
-    return model_fn, to_model, xte, yte
+    return model, to_model, xte, yte
 
 
 def _timed(stats: dict, key: str, fn, *args, **kwargs):
@@ -248,23 +253,42 @@ def _timed(stats: dict, key: str, fn, *args, **kwargs):
     return out
 
 
+def _sweep_mesh(cfg, device: str):
+    """The sweep's mesh with ``--data-parallel=true``: ``--mesh-slots`` slots
+    on ``device``, else one slot a visible CUDA device; None for one slot
+    (or without ``--data-parallel``)."""
+    if not cfg.data_parallel:
+        return None
+    import torch
+
+    from imagetransformations_tpu_torch.pipeline.sharding import data_mesh
+
+    if cfg.mesh_slots:
+        mesh = data_mesh(cfg.mesh_slots, device=device)
+    elif torch.device(device).type == "cuda":
+        mesh = data_mesh()
+    else:
+        return None
+    return mesh if mesh.size > 1 else None
+
+
 def cmd_sweep(argv):
     from imagetransformations_tpu_torch.evalx import report
     from imagetransformations_tpu_torch.evalx.harness import corruption_sweep
     from imagetransformations_tpu_torch.utils.config import SweepConfig
 
     cfg = SweepConfig.from_cli(argv)
-    if cfg.data_parallel:
-        raise SystemExit("--data-parallel is not ported to imagetransformations_tpu_torch: "
-                         "ROADMAP A.9 (multi-device)")
     device = _option(argv, "device", "cuda")
     stats: dict = {}
     model_fn, to_model, xte, yte = _demo(argv, stats)
     metrics = tuple(cfg.metrics.split(","))
+    mesh = _sweep_mesh(cfg, device)
+    if mesh is not None:
+        print(f"data-parallel sweep over {mesh.shape['data']} devices")
     sweep = _timed(stats, "sweep_s", corruption_sweep, model_fn, to_model, xte, yte,
                    seed=int(_option(argv, "seed", "0")),
                    severities=tuple(range(1, cfg.severities + 1)), metric_names=metrics,
-                   batch_size=cfg.batch_size, device=device)
+                   batch_size=cfg.batch_size, mesh=mesh, device=device)
     stats["cells"] = sum(len(v) for v in sweep.values())
     print(report.format_table(report.summary_table(sweep)))
     os.makedirs(cfg.out_dir, exist_ok=True)

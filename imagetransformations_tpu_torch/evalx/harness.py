@@ -20,9 +20,13 @@ Counterpart of ``imagetransformations_tpu/evalx/harness.py``:
 - ``analyze_uncertainty_thresholds`` (pipeline/cifar_iterative_mc.py:
   174-219): the threshold by Youden's J and the flagged counts per metric.
 
-Everything runs on one device. Not ported yet (ROADMAP A.9):
-``evaluate_sharded`` and the sweep's ``mesh=`` path, which raise. The JAX
-package's jit caches have no counterpart: PyTorch runs eagerly.
+- ``evaluate_sharded`` and the sweep's ``mesh=`` path: the same over a
+  one-process device mesh (``pipeline.sharding``): the batch padded to the
+  axis by repeating its last row, the corruption generated on the padded
+  batch, the forward run on each shard with a model replica a device, the
+  padding trimmed from the logits.
+
+The JAX package's jit caches have no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -298,11 +302,70 @@ def evaluate_batched(
                           metric_names)
 
 
-def evaluate_sharded(*args, **kwargs):
-    """The JAX package's data-parallel ``evaluate_batched`` over a device
-    mesh: not ported (ROADMAP A.9, multi-device)."""
-    raise NotImplementedError(
-        "evaluate_sharded is not ported: ROADMAP A.9 (multi-device); use evaluate_batched")
+def _pad_to(x: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
+    """``x`` padded to a multiple of ``multiple`` rows by repeating its last
+    row (always there, even where the pad exceeds the rows); (x, pad)."""
+    pad = (-int(x.shape[0])) % multiple
+    if pad:
+        x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+    return x, pad
+
+
+def _sharded_forward(models, to_model_space, xs) -> torch.Tensor:
+    """Logits of a batch-sharded u8 batch, each shard on its slot's device
+    with its slot's model, gathered on the first slot's device."""
+    with torch.no_grad():
+        parts = [m(to_model_space(s)) for m, s in zip(models, xs.shards)]
+    dev = xs.mesh.devices[0]
+    return torch.cat([t.to(dev) for t in parts])
+
+
+def evaluate_sharded(
+    model_fn: Callable[[torch.Tensor], torch.Tensor],
+    to_model_space: Callable[[torch.Tensor], torch.Tensor],
+    images_u8,
+    labels,
+    mesh,
+    axis: str = "data",
+    batch_size: int | None = None,
+    metric_names: tuple[str, ...] = DEFAULT_METRICS,
+    corrupt_fn: Callable[[torch.Tensor, torch.Generator | None], torch.Tensor] | None = None,
+    generator: torch.Generator | None = None,
+):
+    """Data-parallel ``evaluate_batched`` over a one-process device mesh
+    (``pipeline.sharding.Mesh``; the reference's DataParallel wrap,
+    attacks/fgsm.py:58).
+
+    The dataset goes in batches of ``batch_size`` (default: all of it, at
+    least one row a shard) on the first slot's device. Each batch is padded
+    to a multiple of ``mesh.shape[axis]`` by repeating its last row;
+    ``corrupt_fn(batch_u8, generator) -> batch_u8`` (optional) runs on the
+    padded batch, before the forward, as in JAX; then the batch is split
+    over the slots, each shard runs ``model_fn`` (an ``nn.Module`` is copied
+    once to each other device, ``pipeline.sharding.model_replicas``) and
+    the padded logits are trimmed. Returns ``evaluate_batched``'s dict on
+    the first slot's device. As in JAX, padding changes the shape of the
+    corruption's draws, so a sharded generation equals the unsharded one
+    where each batch divides the axis. ``generator`` defaults to one seeded
+    with 0 (JAX: ``key(0)``)."""
+    from imagetransformations_tpu_torch.pipeline.sharding import model_replicas, shard_images
+
+    ndev = mesh.shape[axis]
+    dev = mesh.devices[0]
+    x, y = to_device(images_u8, dev), to_device(labels, dev)
+    n = int(x.shape[0])
+    batch_size = max(int(n if batch_size is None else batch_size), ndev)
+    if corrupt_fn is not None and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    models = model_replicas(model_fn, mesh)
+    out = []
+    for i in range(0, n, batch_size):
+        xb, pad = _pad_to(x[i: i + batch_size], ndev)
+        if corrupt_fn is not None:
+            xb = corrupt_fn(xb, generator)
+        lg = _sharded_forward(models, to_model_space, shard_images(xb, mesh, axis))
+        out.append(lg[: lg.shape[0] - pad])
+    return _finalize_eval(torch.cat(out), y, metric_names)
 
 
 def _error_aurocs(logits, labels, metric_names):
@@ -352,14 +415,30 @@ def corruption_sweep(
     ``odin_eps`` (1000 / 0.0014, uncertainty_metrics.py:69-94).
 
     Runs on ``device`` (None means "cuda", which raises without a GPU).
-    ``mesh`` (the JAX package's multi-device sweep) is not ported (ROADMAP
-    A.9) and raises.
+
+    With ``mesh`` (a ``pipeline.sharding.Mesh``), the multi-device form of
+    the reference's 15 x 5 x 10k sweep: the clean set is padded once to a
+    multiple of ``mesh.shape[mesh_axis]`` by repeating its last row, each
+    cell generated on the padded set (on ``device``, by default the mesh's
+    first slot; ``cell_draws`` must then give draws for the padded set),
+    and the forward runs on each shard with a model replica a device
+    (``evaluate_sharded``'s), the padding trimmed. Where the set divides
+    the axis each cell generates what the one-device sweep generates.
+    ``uq_extras`` is a one-device path: with a mesh it raises.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "corruption_sweep(mesh=...) is not ported: ROADMAP A.9 (multi-device)")
-    dev = entry_device(device, "corruption_sweep")
+    if mesh is not None and uq_extras is not None:
+        raise ValueError("corruption_sweep: uq_extras is a single-device path; pass mesh=None")
+    if mesh is not None and device is None:
+        dev = mesh.devices[0]
+    else:
+        dev = entry_device(device, "corruption_sweep")
     x, y = to_device(clean_images_u8, dev), to_device(labels, dev)
+    pad = 0
+    if mesh is not None:
+        from imagetransformations_tpu_torch.pipeline.sharding import model_replicas, shard_images
+
+        x, pad = _pad_to(x, mesh.shape[mesh_axis])
+        models = model_replicas(model_fn, mesh)
     names = corruption_names or tuple(CORRUPTIONS)
     metric_names = tuple(metric_names)
     if uq_extras is not None:
@@ -376,7 +455,12 @@ def corruption_sweep(
             else:
                 imgs = corrupt(x, name, sev, None, **{
                     k: to_device(v, dev) for k, v in cell_draws(name, sev).items()})
-            if uq_extras is None:
+            if mesh is not None:
+                logits = _sharded_forward(models, to_model_space,
+                                          shard_images(imgs, mesh, mesh_axis))
+                logits = logits[: logits.shape[0] - pad]
+                cols = metric_names
+            elif uq_extras is None:
                 logits = _forward_all(model_fn, to_model_space, imgs, batch_size)
                 cols = metric_names
             else:

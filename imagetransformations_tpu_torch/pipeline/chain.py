@@ -160,7 +160,8 @@ def _match_mega(chain: list[OpSpec], i: int, channels: int):
 
     Returns (radius, angle or angle array, grayscale_out, ops_consumed,
     bound) or None; ``bound`` is None for a static angle and the rounded
-    budget for an angle array."""
+    budget for an angle array: of the spec's ``max_angle_deg`` where it is
+    at least the array's max |angle|, else of that max."""
     radius, angle, bound = 0.0, 0.0, None
     j = i
     if chain[j].name == "blur" and _static(chain[j].params["radius"]):
@@ -169,10 +170,17 @@ def _match_mega(chain: list[OpSpec], i: int, channels: int):
     if j < len(chain) and chain[j].name == "rotation":
         a = chain[j].params["angle"]
         amax = _max_abs_angle(a)
+        hint = chain[j].params.get("max_angle_deg")
         if _static(a) and abs(float(a)) <= 45.0:
             angle = float(a)
             j += 1
         elif amax is not None:
+            # a declared budget (``sharded_chain_fn`` passes the global
+            # batch's to each shard) is kept where it covers the angles; it
+            # clips nothing then and changes no pixel, only the kernels'
+            # tile bound on the card
+            if hint is not None and amax <= float(hint) <= 45.0:
+                amax = float(hint)
             angle, bound = a, _round_budget(amax)
             j += 1
     if j == i:
@@ -253,6 +261,7 @@ def build_chain_fn(
     strict_parity: bool = False,
     warp_method: str = "bilinear",
     fast_compile: bool = False,
+    jit: bool = True,
     device: str | torch.device | None = None,
 ) -> Callable[..., torch.Tensor]:
     """Compile a chain into ``fn(images, generator=None) -> images``.
@@ -275,6 +284,11 @@ def build_chain_fn(
     <= 1 LSB from the static route). Nothing here is compiled per angle,
     so the flag buys no time on the GPU; it exists so that a chain gives
     the same output in both packages.
+
+    ``jit`` is the JAX signature's: eager PyTorch has nothing to compile,
+    so either value builds the same function. As in JAX, ``fast_compile``
+    takes effect only with ``jit=True`` (JAX's ``jit=False`` build is the
+    normal one, which the evolutionary search's one-op chains use).
     """
     dev = entry_device(device, "build_chain_fn")
     chain = list(chain)
@@ -283,7 +297,7 @@ def build_chain_fn(
            generator: torch.Generator | None = None) -> torch.Tensor:
         return _run_chain(chain, to_device(images, dev), strict_parity, warp_method, generator)
 
-    fc = _fast_compile_spec(chain) if fast_compile and not strict_parity else None
+    fc = _fast_compile_spec(chain) if fast_compile and jit and not strict_parity else None
     if fc is None:
         return fn
     radius_fc, angle_fc, gray_fc = fc

@@ -7,6 +7,8 @@ L0 layer:
 - ``load_cifar10c_npy``   <- transformation.py:19-71 (npy corruption tensors,
   fixed severity sample indices) and FINAL_cifar_corrupted.py:45-48
   (sev*10000 slicing)
+- ``global_batch_from_host_shards`` <- the JAX package's multi-host input
+  assembly, in one process (its scope is stated there)
 - ``prefetch_to_device``  <- DataLoader(num_workers=N) equivalent: a
   background thread stages host batches from pinned buffers onto a side
   CUDA stream while the current batch computes.
@@ -60,6 +62,29 @@ def shard_files_for_host(paths: list[str], process_index: int = 0,
     start = idx * len(paths) // cnt
     stop = (idx + 1) * len(paths) // cnt
     return list(paths[start:stop])
+
+
+def global_batch_from_host_shards(local_batch, mesh, axis: str = "data"):
+    """The batch as ``evaluate_sharded`` and ``sharded_chain_fn`` consume it:
+    in one process, ``pipeline.sharding.shard_images`` of ``local_batch``
+    over ``mesh[axis]``.
+
+    Scope: the port's mesh is one process (``pipeline.sharding``). JAX's
+    ``make_array_from_process_local_data`` assembles one global array from
+    every host's local rows; the port has no array across processes, so
+    under an initialized ``torch.distributed`` group of more than one
+    process this raises ``RuntimeError``: each process shards its own
+    batch over its own mesh instead."""
+    import torch.distributed as dist
+
+    from imagetransformations_tpu_torch.pipeline.sharding import shard_images
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise RuntimeError(
+            "global_batch_from_host_shards: the port's mesh is one process; a batch across "
+            f"{dist.get_world_size()} processes has no global array here. Shard each "
+            "process's batch over its own mesh (pipeline.sharding.shard_images)")
+    return shard_images(local_batch, mesh, axis)
 
 
 def load_folder_images(

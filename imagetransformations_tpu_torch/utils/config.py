@@ -60,6 +60,9 @@ class SweepConfig(_Base):
     # shard each (corruption, severity) cell over all local devices
     # (evalx.evaluate_sharded); single-device runs are unaffected
     data_parallel: bool = False
+    # with data_parallel: this many mesh slots on the one --device (0 =
+    # one slot a visible CUDA device)
+    mesh_slots: int = 0
 
 
 @dataclasses.dataclass

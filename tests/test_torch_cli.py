@@ -135,16 +135,17 @@ def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("cmd,item", [("sweep", "A.6"), ("report", "A.6")])
 def test_unported_commands_name_their_roadmap_item(cmd, item, tmp_path, monkeypatch):
     """The commands of ROADMAP {item} are ported: they no longer exit naming
-    it, and run on the card by default (without one they fail); what is
-    left of them, the sweep's --data-parallel, names ROADMAP A.9
-    (tests/test_torch_cli_sweep.py runs both commands)."""
+    it, and run on the card by default (without one they fail); so does the
+    sweep's --data-parallel, ported with ROADMAP A.9
+    (tests/test_torch_cli_sweep.py runs both commands,
+    tests/test_torch_evaluate_sharded.py the sweep on a CPU mesh)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = [cmd, f"--data-root={tmp_path}", f"--out-dir={tmp_path / 'out'}"]
     with pytest.raises(RuntimeError, match="CUDA"):
         main(argv)
     if cmd == "sweep":
-        with pytest.raises(SystemExit, match="ROADMAP A.9"):
-            main(argv + ["--data-parallel=true", "--device=cpu"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv + ["--data-parallel=true"])
 
 
 def test_cli_unknown_command_and_help(capsys):

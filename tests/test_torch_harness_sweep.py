@@ -166,11 +166,17 @@ def test_sweep_defaults_and_unported_paths(setup, monkeypatch):
                               batch_size=8, metric_names=(), device="cpu")
     assert list(out) == list(ph.CORRUPTIONS)
     assert all(set(v) == {1} and v[1]["auroc"] == {} for v in out.values())
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ph.corruption_sweep(s["port"], cifar_model_space, imgs, labels, mesh=object(),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ph.evaluate_sharded(s["port"], cifar_model_space, imgs, labels, None)
+    # the mesh paths (ROADMAP A.9) run: one CPU slot gives the one-device
+    # result; the ODIN / Mahalanobis columns stay a one-device path
+    from imagetransformations_tpu_torch.pipeline.sharding import data_mesh
+
+    one = data_mesh(device="cpu")
+    got = ph.evaluate_sharded(s["port"], cifar_model_space, imgs, labels, one)
+    want = ph.evaluate_batched(s["port"], cifar_model_space, imgs, labels, device="cpu")
+    assert got["accuracy"] == want["accuracy"]
+    with pytest.raises(ValueError, match="single-device"):
+        ph.corruption_sweep(s["port"], cifar_model_space, imgs, labels, mesh=one,
+                            uq_extras={}, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn in (ph.evaluate_batched, ph.corruption_sweep):
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -24,7 +24,8 @@ def _port_files():
                                          ROOT / "tools" / "time_blur.py",
                                          ROOT / "tools" / "time_resample.py",
                                          ROOT / "tools" / "run_uq_phases.py",
-                                         ROOT / "tools" / "run_adapt_phases.py"]
+                                         ROOT / "tools" / "run_adapt_phases.py",
+                                         ROOT / "tools" / "run_mesh_phases.py"]
 
 
 def _imported(tree):
@@ -62,7 +63,9 @@ def test_port_files_found():
                    "evalx/analysis.py", "attacks/fgsm.py", "attacks/pgd.py",
                    "adapt/refine.py", "utils/checkpoint.py", "adapt/tent.py",
                    "adapt/conditional.py", "adapt/tta.py", "adapt/matta.py", "adapt/posthoc.py",
-                   "adapt/augmix.py", "adapt/_optim.py", "utils/profiling.py"):
+                   "adapt/augmix.py", "adapt/_optim.py", "utils/profiling.py",
+                   "adapt/patches.py", "adapt/evolution.py", "pipeline/sharding.py",
+                   "ops/sharded_stencil.py"):
         assert f"imagetransformations_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
 
@@ -193,16 +196,33 @@ names = {port: ("as_batch", "as_float", "to_uint8_rint", "to_uint8_trunc"),
                 "PARAM_GRIDS", "ParamGrid", "sample_params", "sample_all"),
          pipeline: ("Chain", "OpSpec", "build_chain_fn", "apply_all_transformations",
                     "transform_batch", "load_folder_images", "prefetch_to_device",
-                    "shard_files_for_host"),
+                    "shard_files_for_host", "global_batch_from_host_shards", "data_mesh",
+                    "shard_images", "sharded_apply"),
          evalx: ("CORRUPTIONS", "corrupt", "evaluate_batched", "corruption_sweep",
                  "analyze_uncertainty_thresholds", "evaluate_sharded"),
          utils: ("FrameworkConfig", "RefineConfig", "SweepConfig", "save_checkpoint",
                  "load_checkpoint", "op_throughput", "trace"),
-         adapt: ("augmix", "conditional", "matta", "posthoc", "refine", "tent", "tta")}
+         adapt: ("augmix", "conditional", "evolution", "matta", "patches", "posthoc", "refine",
+                 "tent", "tta")}
 missing = [f"{m.__name__}.{n}" for m, ns in names.items() for n in ns if not hasattr(m, n)]
 assert not missing, missing
 assert sorted(core.sample_all(torch.Generator(), 3)) == sorted(port.PARAM_GRIDS)
 assert pipeline.transform_batch(x, chain, device="cpu").shape == x.shape
+from imagetransformations_tpu_torch.adapt import evolution, patches
+from imagetransformations_tpu_torch.ops.sharded_stencil import sharded_gaussian_blur
+from imagetransformations_tpu_torch.pipeline import sharding
+x01 = torch.from_numpy(x8).float() / 255.0
+assert patches.adet_operator(x01, torch.ones(4, 4, 3), torch.Generator()).shape == x01.shape
+assert patches.restorative_patches_per_image(lambda z: net(z.permute(0, 3, 1, 2)), x01,
+                                             patch_hw=(3, 3), iters=1, device="cpu")[1].shape[0] == 2
+ind = evolution.Individual([("blur", 1.0), ("sharpness", 1.5)])
+assert 0.5 <= evolution.fitness_fn(net, space, x8, ind, device="cpu") <= 1.0
+mesh = pipeline.data_mesh(2, device="cpu")
+assert sharding.sharded_chain_fn(chain, mesh)(x8).gather().shape == x8.shape
+assert sharded_gaussian_blur(x8, 1.5, mesh).gather().shape == x8.shape
+assert pipeline.global_batch_from_host_shards(x8, mesh).shape == x8.shape
+assert 0.0 <= harness.evaluate_sharded(net, space, x8, y8, mesh)["accuracy"] <= 1.0
+assert pipeline.build_chain_fn(chain, jit=False, device="cpu")(x8).shape == x8.shape
 print("ok")
 """
     env = dict(os.environ)
