@@ -104,6 +104,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -2618,7 +2619,9 @@ def sharding_phase(torch, mk, model, space, xte, yte) -> dict:
     --data-parallel=true --mesh-slots=4`` CLI row (256 images, severity 1).
     ms of each against the one-device run (CUDA events; the shards run the
     same kernels one after another, so no speed-up is expected on one
-    card). Returns the launches of the sharded runs. Fails otherwise."""
+    card). Returns (the launches of the sharded runs, the first mesh's ms by
+    run, named as ``tools/run_process_mesh.py`` names them). Fails
+    otherwise."""
     import contextlib
     import io as _io
     import tempfile
@@ -2746,6 +2749,273 @@ def sharding_phase(torch, mk, model, space, xte, yte) -> dict:
         row["launches"] = dict(total)
         emit(row)
     emit(cli_row)
+    first = rows[0]
+    ms = {r["run"].split("(")[-1].rstrip(")"): r["ms"] for r in first["runs"][:len(chains)]}
+    ms["blur"] = first["runs"][len(chains)]["ms"]
+    ms["evaluate"] = first["evaluate"]["ms"]
+    ms.update({f"sweep {k}": v["ms"] for k, v in first["sweep_cells"].items()})
+    return total, ms
+
+
+# phase processes: 4 gloo ranks on the one card (the shard count of phase
+# sharding), 2 for the CLI row. A TENT step's logits as in phase tent
+# (TENT_LOGITS_REL); its BatchNorm parameters within lr/20 a step, as
+# tests/test_torch_process_mesh.py holds them against JAX
+PROCESS_RANKS, PROCESS_CLI_RANKS, PROCESS_TIMEOUT_S = 4, 2, 300
+PROCESS_BMA_PROB, PROCESS_FGSM_SHARE, PROCESS_TRAIN_REL = 1e-4, 1e-3, 1e-5
+PROCESS_TENT_BN_LR_SHARE = 1 / 20
+# two f32 runs that each stray d from exact arithmetic may lie 2d apart,
+# and the largest difference over steps and entries varies by about as much
+# again between runs: |ranks - one device| / |one device - f64| measured
+# 0.1-2.9 over the card runs of PR 18 (losses, gradients, parameters);
+# PERF.md section 5 has the reading of a planted fault against this budget
+PROCESS_FLOOR_FACTOR = 4
+
+
+def torchrun(nproc: int, args: list) -> subprocess.Popen:
+    """``python -m torch.distributed.run --standalone --nproc-per-node=nproc
+    *args`` from the repository's root, started in a session of its own,
+    its output captured (``finish`` waits for it)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             f"--nproc-per-node={nproc}", *args], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def finish(proc: subprocess.Popen, timeout: float) -> tuple[str, str]:
+    """(stdout, stderr) of ``proc``; its whole session (torchrun and its
+    ranks) killed if it outlives ``timeout``."""
+    try:
+        return proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+
+
+def processes_phase(torch, mk, model, space, xte, yte, one_process_ms: dict) -> dict:
+    """The process mesh: ``tools/run_process_mesh.py`` under ``torchrun``,
+    4 gloo ranks on ``cuda:0`` (NCCL refuses two ranks on one GPU), on
+    ``make_inputs("full")`` with the demo ResNet-20 and the 10 000 test
+    images: the chains at 32x512x512x3 (#1, #3, #4, #5) and the halo blur
+    (#6), each launched once on each rank and 0 LSB against one device;
+    ``evaluate_sharded`` (logits within 1e-3 of max(1, max |logit|),
+    accuracy equal: one device forwards batches of a shard's size) and 3
+    mesh sweep cells (accuracy equal, AUROC within 1e-4; #12 in rotation on
+    each rank); 4 ``make_train_step`` steps and 2 ``adversarial_train_step``
+    steps (SGD with momentum, the first 256 test images):
+    the ranks' gradients and parameters equal bit for bit, the first step's
+    loss within rtol 1e-5 of one device's, and the first step's averaged
+    gradients, the losses and the parameters within 1e-5 (relative; of the
+    largest entry) of one device's or within 4 times the distance of the
+    one-device f32 steps from the same steps in f64, where that is larger
+    (training BatchNorm's gradient cancels in f32, so one device's f32
+    parameters lie 6e-7-3e-5 of the largest entry from f64's, PERF.md); a TENT step
+    of 256 (its logits within 1e-4 of the largest, the BatchNorm
+    parameters within lr/20 a step) and ``evaluate_with_tent`` continuous
+    over 4 batches of 256 (accuracy within 1/256); SWAG's BMA of 3 samples
+    on 256 (probabilities within 1e-4); FGSM on 256 (<= 0.1% of values
+    differ). The one-device run is the same ``run_all`` in this process,
+    timed once the CLI row has ended and the 4 ranks wait, ready, for it to
+    end. ms of each run (the slowest rank; host clock to a synchronize)
+    beside the one-device run's and phase sharding's one-process ms (CUDA
+    events). One ``sweep
+    --data-parallel=true`` CLI row on 2 ranks: "data-parallel sweep over 2
+    devices" printed once. Returns the ranks' launches (summed). Fails
+    otherwise, after printing the row."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import run_process_mesh as rpm
+
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    inputs = rpm.make_inputs("full", SEED, PROCESS_RANKS, model_state=state, data=(xte, yte))
+    row = {"phase": "processes", "ranks": PROCESS_RANKS, "shape": [*SHAPE_512, 3],
+           "images": len(xte)}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        gate = os.path.join(tmp, "start")
+        # the CLI row's 2 ranks and the 4 ranks start together; the 4 start
+        # up while the CLI runs and wait at the gate. With the CLI ended and
+        # the 4 ready, this process times the one-device reference on a card
+        # that runs nothing else, then opens the gate
+        t_cli = t0 = time.perf_counter()
+        started = time.time()
+        cli = torchrun(PROCESS_CLI_RANKS, ["-m", "imagetransformations_tpu_torch", "sweep",
+                                           f"--data-root={tmp}/cli", f"--out-dir={tmp}/cli/out",
+                                           "--severities=1", "--device=cuda",
+                                           "--data-parallel=true", "--stats"])
+        procs = [cli]
+        try:
+            procs.append(torchrun(PROCESS_RANKS, [
+                os.path.join("tools", "run_process_mesh.py"), "--device=cuda",
+                f"--inputs={tmp}/inputs.pt", f"--out={tmp}/out", f"--start-file={gate}"]))
+            cli_out, cli_err = finish(cli, PROCESS_TIMEOUT_S)
+            cli_wall = time.perf_counter() - t_cli
+            deadline = time.perf_counter() + PROCESS_TIMEOUT_S
+            while not all(os.path.exists(f"{gate}.rank{r}") for r in range(PROCESS_RANKS)):
+                if procs[1].poll() is not None or time.perf_counter() > deadline:
+                    break  # the ranks' exit code and output tell why, below
+                time.sleep(0.05)
+            row["one_device_start_s"] = time.perf_counter() - t0
+            one = rpm.run_all(inputs, None, "cuda")
+            # f32's own floor: the one-device training steps in f64
+            exact = rpm.train_runs(inputs, None, "cuda", torch.float64)
+            row["one_device_s"] = time.perf_counter() - t0 - row["one_device_start_s"]
+            with open(gate, "w"):
+                pass
+            stdout, stderr = finish(procs[1], PROCESS_TIMEOUT_S)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.communicate()
+        row["ranks_wall_s"] = time.perf_counter() - t0
+        if procs[1].returncode != 0:
+            print(stdout[-4000:], stderr[-8000:], file=sys.stderr, flush=True)
+            fail(f"processes: the ranks exited with {procs[1].returncode}")
+        ranks = [torch.load(os.path.join(tmp, "out", f"rank{r}.pt"), weights_only=False)
+                 for r in range(PROCESS_RANKS)]
+    row["backend"] = sorted({r["backend"] for r in ranks})
+    row["rank_stages_s"] = [{**{k: v for k, v in r["stages"].items() if k != "started"},
+                             "start_s": r["stages"]["started"] - started,
+                             "run_all_marks_s": r["marks"]} for r in ranks]
+    row["devices"] = [r["device"] for r in ranks]
+    print(f"processes: {PROCESS_RANKS} ranks on {row['devices']}, backend {row['backend']}",
+          flush=True)
+    got, want = ranks[0]["out"], one["out"]
+    errors = []
+    row["runs"] = {run: {"ms": max(r["ms"][run] for r in ranks), "one_device_ms": ms,
+                         "one_process_mesh_ms": one_process_ms.get(run),
+                         "launches": [r["launches"][run] for r in ranks]}
+                   for run, ms in one["ms"].items()}
+
+    def counts(rank, run) -> dict:
+        full = dict.fromkeys(mk.LAUNCHES, 0)
+        full.update(rank["launches"][run])
+        return full
+
+    raw = dict.fromkeys(mk.LAUNCHES, 0)
+    for r in ranks:
+        for run in r["launches"]:
+            for k, v in counts(r, run).items():
+                raw[k] += v
+    total = {k: v for k in raw if (v := row_launches(raw, k))}
+    row["launches"] = total
+    for kernel in [*rpm.CHAINS, "blur"]:
+        name = "blur_separable" if kernel == "blur" else kernel
+        launched = [row_launches(counts(r, kernel), name) for r in ranks]
+        shards = torch.cat([r["out"][kernel] for r in ranks],
+                           dim=1 if kernel == "blur" else 0)
+        err = max_lsb(torch, shards, want[kernel])
+        row["runs"][kernel]["max_lsb_vs_one_device"] = err
+        if err != 0 or launched != [1] * PROCESS_RANKS:
+            errors.append(f"{kernel}: {err} LSB, launched {launched} on the ranks")
+    rot = [counts(r, "sweep rotation 3")["pil_rotate_nearest"] for r in ranks]
+    if min(rot) < 1:
+        errors.append(f"the rotation cell launched #12 {rot} times on the ranks")
+    lg, lg1 = got["evaluate"]["logits"], want["evaluate"]["logits"].float()
+    row["evaluate"] = {"accuracy": got["evaluate"]["accuracy"],
+                       "one_device_accuracy": want["evaluate"]["accuracy"],
+                       "max_abs": float((lg - lg1).abs().max()),
+                       "budget": 1e-3 * max(1.0, float(lg1.abs().max()))}
+    if (row["evaluate"]["max_abs"] > row["evaluate"]["budget"]
+            or got["evaluate"]["accuracy"] != want["evaluate"]["accuracy"]):
+        errors.append(f"evaluate_sharded: {row['evaluate']}")
+    for name, sev in rpm.SWEEP_CELLS:
+        k = f"sweep {name} {sev}"
+        da = abs(got[k]["accuracy"] - want[k]["accuracy"])
+        du = max(abs(got[k]["auroc"][m] - want[k]["auroc"][m]) for m in want[k]["auroc"])
+        row["runs"][k].update(d_accuracy=da, max_d_auroc=du)
+        if da != 0 or du > SHARD_AUROC_ABS:
+            errors.append(f"{k}: |d accuracy| {da}, |d AUROC| {du}")
+    # the first step's loss (the forward with the global BatchNorm
+    # statistics) within PROCESS_TRAIN_REL; the first step's averaged
+    # gradients, and later the losses and parameters: the one-device f32
+    # steps part from the f64 ones by their rounding (training BatchNorm's
+    # gradient cancels in f32), and the ranks may part from one device by
+    # PROCESS_FLOOR_FACTOR times that, or by PROCESS_TRAIN_REL where larger
+
+    def losses_of(res, run):
+        return [float(v[0]) if run == "train" else float(v)
+                for v in res[run]["loss_acc" if run == "train" else "loss"]]
+
+    def params_apart(a, b) -> float:
+        """max |a - b| over every parameter, over the largest |entry| of b."""
+        return (max(float((a[k].double() - v).abs().max()) for k, v in b.items())
+                / max(float(v.abs().max()) for v in b.values()))
+
+    def within_floor(d, floor) -> bool:
+        return d <= max(PROCESS_TRAIN_REL, PROCESS_FLOOR_FACTOR * floor)
+
+    grad = params_apart(got["train"]["grads"], want["train"]["grads"])
+    grad_floor = params_apart(want["train"]["grads"], exact["train"]["grads"])
+    grads_same = all(torch.equal(r["out"]["train"]["grads"][k], v) for r in ranks[1:]
+                     for k, v in got["train"]["grads"].items())
+    row["runs"]["train"].update(first_grads_rel=grad, first_grads_rel_f32_vs_f64=grad_floor,
+                                first_grads_ranks_bit_equal=grads_same)
+    if not within_floor(grad, grad_floor) or not grads_same:
+        errors.append(f"train: the first step's averaged gradients {grad} of the largest entry "
+                      f"from one device's (f32 against f64 {grad_floor}), ranks equal "
+                      f"{grads_same}")
+    for run in ("train", "adv_train"):
+        losses, losses1, losses64 = (losses_of(r, run) for r in (got, want, exact))
+        loss_d = max(abs(a - b) / abs(b) for a, b in zip(losses, losses1))
+        loss_floor = max(abs(a - b) / abs(b) for a, b in zip(losses1, losses64))
+        par = params_apart(got[run]["params"], want[run]["params"])
+        par_floor = params_apart(want[run]["params"], exact[run]["params"])
+        same = all(torch.equal(r["out"][run]["params"][k], v) for r in ranks[1:]
+                   for k, v in got[run]["params"].items())
+        first = abs(losses[0] - losses1[0]) / abs(losses1[0])
+        row["runs"][run].update(
+            losses=losses, losses_one_device=losses1, first_loss_rel=first, loss_rel=loss_d,
+            loss_rel_f32_vs_f64=loss_floor, params_rel=par,
+            params_rel_f32_vs_f64=par_floor, ranks_bit_equal=same)
+        if (first > PROCESS_TRAIN_REL or not within_floor(loss_d, loss_floor)
+                or not within_floor(par, par_floor) or not same):
+            errors.append(f"{run}: loss rel {loss_d} (f32 against f64 {loss_floor}), params "
+                          f"{par} of the largest entry (f32 against f64 {par_floor}), ranks "
+                          f"equal {same}")
+    # TENT: each step's logits (the forward with the global statistics,
+    # before the update) and the BatchNorm parameters after the steps
+    tg, tw = got["tent_steps"], want["tent_steps"]
+    steps = len(tw["bn"])
+    logit_d = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(tg["logits"], tw["logits"]))
+    bn = max(float((tg["bn"][-1][k] - v).abs().max()) for k, v in tw["bn"][-1].items())
+    bn_budget = PROCESS_TENT_BN_LR_SHARE * rpm.TENT_LR * steps
+    dacc = abs(got["tent_accuracy"] - want["tent_accuracy"])
+    row["runs"]["tent_steps"].update(logits_rel=logit_d, bn_max_abs=bn, bn_budget=bn_budget)
+    row["runs"]["tent_accuracy"].update(accuracy=got["tent_accuracy"], d_accuracy=dacc)
+    if (len(tg["logits"]) != steps or logit_d > TENT_LOGITS_REL or bn > bn_budget
+            or dacc > 1 / 256 + 1e-12):
+        errors.append(f"TENT: logits {logit_d} of the largest apart, BatchNorm parameters {bn} "
+                      f"apart, accuracy {dacc}")
+    dp = float((torch.softmax(got["bma"], -1) - torch.softmax(want["bma"], -1)).abs().max())
+    share = float((got["fgsm"] != want["fgsm"]).float().mean())
+    row["runs"]["bma"].update(max_d_prob=dp)
+    row["runs"]["fgsm"].update(differing_share=share)
+    if dp > PROCESS_BMA_PROB or share > PROCESS_FGSM_SHARE:
+        errors.append(f"BMA probabilities {dp} apart, FGSM {share} of values differ")
+    text = cli_out.strip().splitlines()
+    line = f"data-parallel sweep over {PROCESS_CLI_RANKS} devices"
+    row["cli"] = {"command": f"torchrun x{PROCESS_CLI_RANKS} sweep --data-parallel=true "
+                             "--severities=1", "wall_s": cli_wall, "rc": cli.returncode,
+                  "mesh_lines": sum(t == line for t in text)}
+    if cli.returncode == 0:
+        row["cli"]["stats"] = json.loads(text[-1])
+    if (cli.returncode != 0 or row["cli"]["mesh_lines"] != 1
+            or row["cli"]["stats"]["cells"] != 15):
+        print(cli_out[-3000:], cli_err[-6000:], file=sys.stderr, flush=True)
+        errors.append(f"the sweep CLI on {PROCESS_CLI_RANKS} ranks: {row['cli']}")
+    row["phase_s"] = time.perf_counter() - t_phase
+    row["nvidia_smi"] = nvidia_smi()
+    emit(row)
+    if errors:
+        fail("processes: " + "; ".join(errors))
     return total
 
 
@@ -3512,9 +3782,12 @@ def main() -> int:
         # angelic patches, the evolutionary search (#3 through the blur
         # genes) and the one-process mesh (#1, #3-#6, #12 on 4 shards)
         model, space = demo_model(torch, xtr, ytr)
-        for launched in (patches_phase(torch, mk, model, space, xtr, ytr, xte, yte),
-                         evolution_phase(torch, mk, model, space, xte),
-                         sharding_phase(torch, mk, model, space, xte, yte)):
+        launches = [patches_phase(torch, mk, model, space, xtr, ytr, xte, yte),
+                    evolution_phase(torch, mk, model, space, xte)]
+        shard_launches, shard_ms = sharding_phase(torch, mk, model, space, xte, yte)
+        launches += [shard_launches,
+                     processes_phase(torch, mk, model, space, xte, yte, shard_ms)]
+        for launched in launches:
             for k, v in launched.items():
                 for e in entries:
                     if e["name"] == k:

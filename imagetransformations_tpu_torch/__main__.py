@@ -39,7 +39,11 @@ from it (``workflows.corruption_generator``).
   one-process device mesh (``pipeline.sharding``): one slot a visible CUDA
   device, or ``--mesh-slots=N`` slots on the one ``--device``
   (``--device=cpu --mesh-slots=4`` included); with more than one slot it
-  prints "data-parallel sweep over N devices", as the JAX CLI does.
+  prints "data-parallel sweep over N devices", as the JAX CLI does. Under
+  ``python -m torch.distributed.run --nproc-per-node=N`` (``WORLD_SIZE`` >
+  1) and without ``--mesh-slots`` the mesh is the ranks'
+  (``pipeline.sharding.init_process_mesh``): each rank on its ``--device`` (``cuda`` is
+  ``cuda:{LOCAL_RANK % device_count}``), rank 0 alone printing and writing.
 - ``report [--data-root=DIR] [--out-dir=DIR] [--seed=N] [--device=cuda|cpu]
   [--stats]`` — the demo model's uncertainty report
   (``workflows.uncertainty_report``): accuracy, each metric's AUROC and
@@ -222,16 +226,16 @@ def cmd_corrupt(argv):
     _print_stats(argv, stats)
 
 
-def _demo(argv, stats: dict):
+def _demo(argv, stats: dict, device, verbose: bool = True):
     """The demo model (the module itself, so that a mesh can copy it to
-    each device) and test data on ``--device`` (``utils.demo``)."""
+    each device) and test data on ``device`` (``utils.demo``)."""
     import time
 
     from imagetransformations_tpu_torch.utils.demo import get_data, get_model
 
-    xtr, ytr, xte, yte = get_data(_option(argv, "data-root", "./data"), verbose=True)
+    xtr, ytr, xte, yte = get_data(_option(argv, "data-root", "./data"), verbose=verbose)
     t0 = time.perf_counter()
-    _, to_model, model = get_model(xtr, ytr, device=_option(argv, "device", "cuda"),
+    _, to_model, model = get_model(xtr, ytr, device=device,
                                    seed=int(_option(argv, "seed", "0")))
     stats["train_s"] = time.perf_counter() - t0
     stats["images"] = int(len(xte))
@@ -255,16 +259,19 @@ def _timed(stats: dict, key: str, fn, *args, **kwargs):
 
 def _sweep_mesh(cfg, device: str):
     """The sweep's mesh with ``--data-parallel=true``: ``--mesh-slots`` slots
-    on ``device``, else one slot a visible CUDA device; None for one slot
-    (or without ``--data-parallel``)."""
+    on ``device``; else, under ``torchrun`` (``WORLD_SIZE`` > 1), the
+    process mesh of its ranks; else one slot a visible CUDA device. None
+    for one slot (or without ``--data-parallel``)."""
     if not cfg.data_parallel:
         return None
     import torch
 
-    from imagetransformations_tpu_torch.pipeline.sharding import data_mesh
+    from imagetransformations_tpu_torch.pipeline.sharding import data_mesh, init_process_mesh
 
     if cfg.mesh_slots:
         mesh = data_mesh(cfg.mesh_slots, device=device)
+    elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return init_process_mesh(device)
     elif torch.device(device).type == "cuda":
         mesh = data_mesh()
     else:
@@ -273,22 +280,41 @@ def _sweep_mesh(cfg, device: str):
 
 
 def cmd_sweep(argv):
+    """The corruption sweep. On a process mesh every rank trains the demo
+    model, runs its shard of each cell with rank 0's weights and gets the
+    whole result; rank 0 alone prints and writes."""
+    import torch.distributed as dist
+
     from imagetransformations_tpu_torch.evalx import report
     from imagetransformations_tpu_torch.evalx.harness import corruption_sweep
+    from imagetransformations_tpu_torch.pipeline.sharding import ProcessMesh
     from imagetransformations_tpu_torch.utils.config import SweepConfig
 
     cfg = SweepConfig.from_cli(argv)
     device = _option(argv, "device", "cuda")
-    stats: dict = {}
-    model_fn, to_model, xte, yte = _demo(argv, stats)
-    metrics = tuple(cfg.metrics.split(","))
     mesh = _sweep_mesh(cfg, device)
-    if mesh is not None:
-        print(f"data-parallel sweep over {mesh.shape['data']} devices")
-    sweep = _timed(stats, "sweep_s", corruption_sweep, model_fn, to_model, xte, yte,
-                   seed=int(_option(argv, "seed", "0")),
-                   severities=tuple(range(1, cfg.severities + 1)), metric_names=metrics,
-                   batch_size=cfg.batch_size, mesh=mesh, device=device)
+    ranks = isinstance(mesh, ProcessMesh)
+    lead = not ranks or mesh.rank == 0
+    if ranks:
+        device = mesh.device
+    try:
+        stats: dict = {}
+        model_fn, to_model, xte, yte = _demo(argv, stats, device, verbose=lead)
+        metrics = tuple(cfg.metrics.split(","))
+        if mesh is not None and lead:
+            print(f"data-parallel sweep over {mesh.shape['data']} devices")
+        sweep = _timed(stats, "sweep_s", corruption_sweep, model_fn, to_model, xte, yte,
+                       seed=int(_option(argv, "seed", "0")),
+                       severities=tuple(range(1, cfg.severities + 1)), metric_names=metrics,
+                       batch_size=cfg.batch_size, mesh=mesh, device=device)
+        if lead:
+            _write_sweep(argv, cfg, metrics, stats, sweep, report)
+    finally:
+        if ranks:
+            dist.destroy_process_group()
+
+
+def _write_sweep(argv, cfg, metrics, stats: dict, sweep: dict, report) -> None:
     stats["cells"] = sum(len(v) for v in sweep.values())
     print(report.format_table(report.summary_table(sweep)))
     os.makedirs(cfg.out_dir, exist_ok=True)
@@ -310,7 +336,7 @@ def cmd_report(argv):
     cfg = SweepConfig.from_cli(argv)
     device = _option(argv, "device", "cuda")
     stats: dict = {}
-    model_fn, to_model, xte, yte = _demo(argv, stats)
+    model_fn, to_model, xte, yte = _demo(argv, stats, device)
     res = _timed(stats, "report_s", uncertainty_report, model_fn, to_model, xte, yte,
                  out_dir=cfg.out_dir, device=device)
     print(f"accuracy: {res['accuracy']:.4f}")

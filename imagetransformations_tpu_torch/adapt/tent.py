@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
@@ -36,6 +37,8 @@ from imagetransformations_tpu_torch.adapt.conditional import batch_gate_fraction
 from imagetransformations_tpu_torch.core.image import entry_device, to_device
 from imagetransformations_tpu_torch.core.precision import full_f32
 from imagetransformations_tpu_torch.models._layers import BatchNorm
+from imagetransformations_tpu_torch.core.mesh import (
+    ShardedBatch, batch_mesh, local_view, mean_over_ranks, shard_images)
 
 Params = dict[str, torch.Tensor]
 PROTOCOLS = ("continuous", "reset", "conditional")
@@ -133,19 +136,29 @@ def batch_stats_forward(model: nn.Module):
 def make_tent_step(model: nn.Module, tx: TentOptimizer):
     """``step(state, x) -> (state', logits)``: the batch-statistics forward,
     the entropy of its logits, the gradient for the BatchNorm parameters,
-    one ``tx`` update. The logits are the forward's, before the update."""
+    one ``tx`` update. The logits are the forward's, before the update.
+
+    ``x`` may be a ``ShardedBatch`` on a process mesh: each rank runs its
+    shard with BatchNorm's global batch statistics, the entropy's gradient
+    is averaged over the ranks (the global mean's), the update is
+    replicated, and the logits are this rank's ``ShardedBatch``."""
     forward = batch_stats_forward(model)
 
-    def step(state: TentState, x: torch.Tensor) -> tuple[TentState, torch.Tensor]:
+    def step(state: TentState, x) -> tuple[TentState, torch.Tensor | ShardedBatch]:
+        x, mesh = local_view(x)
         bn = {k: v.detach().requires_grad_(True) for k, v in state.bn_params.items()}
-        with full_f32(), torch.enable_grad():
+        with full_f32(), torch.enable_grad(), batch_mesh(mesh):
             logits = forward(merge_params(bn, state.frozen_params), x)
             grads = torch.autograd.grad(entropy_loss(logits), list(bn.values()))
-        updates, opt_state = tx.update(_flat(dict(zip(bn, grads))), state.opt_state)
+        flat_grads = _flat(dict(zip(bn, grads)))
+        if mesh is not None:
+            flat_grads = {"bn": mean_over_ranks(flat_grads["bn"], mesh)}
+        updates, opt_state = tx.update(flat_grads, state.opt_state)
         with torch.no_grad():
             flat = _optim.apply_updates(_flat(state.bn_params), updates)["bn"]
+        logits = logits.detach()
         return (TentState(_unflat(flat, state.bn_params), state.frozen_params, opt_state),
-                logits.detach())
+                logits if mesh is None else ShardedBatch((logits,), mesh))
 
     return step
 
@@ -168,7 +181,10 @@ def evaluate_with_tent(
 
     Runs on ``device`` (None means "cuda", which raises without a GPU);
     ``model`` must be there, and the batches (tensors or numpy arrays) are
-    moved there."""
+    moved there. Batches and labels may be ``ShardedBatch`` es on a process
+    mesh (``make_tent_step``'s rules; ``device`` then the rank's own): the
+    gate reads the whole raw batch on every rank, and the accuracy counts
+    the global batch."""
     if protocol not in PROTOCOLS:
         raise ValueError(f"unknown TENT protocol {protocol!r}; one of {PROTOCOLS}")
     dev = entry_device(device, "evaluate_with_tent")
@@ -185,18 +201,25 @@ def evaluate_with_tent(
     state = state0
     correct = torch.zeros((), dtype=torch.int64, device=dev)
     total = 0
+    mesh = None
     for b, yb in zip(batches, labels_batches):
-        xb = to_device(b[0] if has_raw else b, dev)
+        xin = b[0] if has_raw else b
+        xb, mesh = local_view(xin)
+        xb = to_device(xb, dev)
         if protocol == "reset":
             state = state0
-        adapt = protocol != "conditional" or float(
-            batch_gate_fraction(to_device(b[1], dev), image_entropy_threshold)) > 0.5
+        adapt = protocol != "conditional" or float(batch_gate_fraction(
+            to_device(b[1].gather() if isinstance(b[1], ShardedBatch) else b[1], dev),
+            image_entropy_threshold)) > 0.5
         if adapt:
-            state, logits = step(state, xb)
+            state, logits = step(state, xb if mesh is None else xin)
+            logits = local_view(logits)[0]
         else:
-            with torch.no_grad():
+            with torch.no_grad(), batch_mesh(mesh):
                 logits = forward(merge_params(state.bn_params, state.frozen_params), xb)
-        yb = to_device(yb, dev)
+        total += len(yb)
+        yb = to_device(yb if mesh is None else shard_images(yb, mesh).shards[0], dev)
         correct += torch.sum(torch.argmax(logits, dim=-1) == yb)
-        total += int(yb.shape[0])
+    if mesh is not None:
+        dist.all_reduce(correct)
     return int(correct) / max(total, 1)

@@ -27,6 +27,8 @@ from torch import nn
 
 from imagetransformations_tpu_torch.core.grids import linspace_f32
 from imagetransformations_tpu_torch.core.precision import full_f32, input_gradient
+from imagetransformations_tpu_torch.core.mesh import (
+    ShardedBatch, average_gradients, batch_mesh, local_view, mean_over_ranks, shard_images)
 
 
 def _ce_grad(model_fn: Callable, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -37,9 +39,16 @@ def _ce_grad(model_fn: Callable, x: torch.Tensor, labels: torch.Tensor) -> torch
 def fgsm_attack(model_fn: Callable, x: torch.Tensor, labels: torch.Tensor,
                 eps: float = 0.03, clip_min: float = 0.0,
                 clip_max: float = 1.0) -> torch.Tensor:
-    """x_adv = clip(x + eps * sign(dL/dx))."""
-    g = _ce_grad(model_fn, x, labels)
-    return torch.clamp(x.detach() + eps * torch.sign(g), clip_min, clip_max)
+    """x_adv = clip(x + eps * sign(dL/dx)). Per example: a ``ShardedBatch``
+    ``x`` on a process mesh is attacked shard by shard, with no collective
+    (the sign of an example's gradient does not depend on the batch's
+    size), and the result is this rank's ``ShardedBatch``."""
+    xl, mesh = local_view(x)
+    if mesh is not None:
+        labels = shard_images(labels, mesh).shards[0]
+    g = _ce_grad(model_fn, xl, labels)
+    adv = torch.clamp(xl.detach() + eps * torch.sign(g), clip_min, clip_max)
+    return adv if mesh is None else ShardedBatch((adv,), mesh, x.axis)
 
 
 def reverse_fgsm(model_fn: Callable, x: torch.Tensor, labels: torch.Tensor,
@@ -83,12 +92,18 @@ def adversarial_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     runs both forwards in training mode from the same running statistics,
     and the statistics kept are the adversarial forward's, as the JAX step
     keeps ``stats2``. Updates ``model`` and ``optimizer`` in place; returns
-    the loss."""
+    the loss. ``x`` may be a ``ShardedBatch`` on a process mesh, as in
+    ``models.training.make_train_step``: each rank crafts and trains on its
+    shard, BatchNorm takes the global statistics, the gradients are
+    averaged over the ranks, and the loss is the global batch's."""
+    x, mesh = local_view(x)
+    if mesh is not None:
+        labels = shard_images(labels, mesh).shards[0]
     x_adv = fgsm_attack(model, x, labels, eps)
     y = labels.long()
     optimizer.zero_grad(set_to_none=True)
     saved = {k: b.clone() for k, b in model.named_buffers()}
-    with full_f32():
+    with full_f32(), batch_mesh(mesh):
         ce_clean = F.cross_entropy(model(x, True), y)
         with torch.no_grad():
             for k, b in model.named_buffers():
@@ -96,8 +111,10 @@ def adversarial_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         ce_adv = F.cross_entropy(model(x_adv, True), y)
         loss = (1.0 - adv_weight) * ce_clean + adv_weight * ce_adv
         loss.backward()
+    if mesh is not None:
+        average_gradients(model.parameters(), mesh)
     optimizer.step()
-    return loss.detach()
+    return loss.detach() if mesh is None else mean_over_ranks(loss, mesh)
 
 
 def _per_channel(v, x: torch.Tensor) -> torch.Tensor:

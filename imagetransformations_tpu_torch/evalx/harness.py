@@ -21,10 +21,11 @@ Counterpart of ``imagetransformations_tpu/evalx/harness.py``:
   174-219): the threshold by Youden's J and the flagged counts per metric.
 
 - ``evaluate_sharded`` and the sweep's ``mesh=`` path: the same over a
-  one-process device mesh (``pipeline.sharding``): the batch padded to the
-  axis by repeating its last row, the corruption generated on the padded
-  batch, the forward run on each shard with a model replica a device, the
-  padding trimmed from the logits.
+  one-process device mesh (``pipeline.sharding``) or the ranks of a process
+  mesh (``core.mesh.ProcessMesh``): the batch padded to the axis by
+  repeating its last row, the corruption generated on the padded batch,
+  the forward run on each shard with a model replica a device, the logits
+  gathered and the padding trimmed.
 
 The JAX package's jit caches have no counterpart: PyTorch runs eagerly.
 """
@@ -313,11 +314,13 @@ def _pad_to(x: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
 
 def _sharded_forward(models, to_model_space, xs) -> torch.Tensor:
     """Logits of a batch-sharded u8 batch, each shard on its slot's device
-    with its slot's model, gathered on the first slot's device."""
+    with its slot's model, gathered on the first slot's device (on a
+    process mesh: on every rank, by ``all_gather``)."""
+    from imagetransformations_tpu_torch.pipeline.sharding import ShardedBatch
+
     with torch.no_grad():
-        parts = [m(to_model_space(s)) for m, s in zip(models, xs.shards)]
-    dev = xs.mesh.devices[0]
-    return torch.cat([t.to(dev) for t in parts])
+        parts = tuple(m(to_model_space(s)) for m, s in zip(models, xs.shards))
+    return ShardedBatch(parts, xs.mesh, xs.axis).gather()
 
 
 def evaluate_sharded(
@@ -334,7 +337,8 @@ def evaluate_sharded(
 ):
     """Data-parallel ``evaluate_batched`` over a one-process device mesh
     (``pipeline.sharding.Mesh``; the reference's DataParallel wrap,
-    attacks/fgsm.py:58).
+    attacks/fgsm.py:58) or a process mesh
+    (``core.mesh.ProcessMesh``).
 
     The dataset goes in batches of ``batch_size`` (default: all of it, at
     least one row a shard) on the first slot's device. Each batch is padded
@@ -347,11 +351,17 @@ def evaluate_sharded(
     the first slot's device. As in JAX, padding changes the shape of the
     corruption's draws, so a sharded generation equals the unsharded one
     where each batch divides the axis. ``generator`` defaults to one seeded
-    with 0 (JAX: ``key(0)``)."""
-    from imagetransformations_tpu_torch.pipeline.sharding import model_replicas, shard_images
+    with 0 (JAX: ``key(0)``).
+
+    On a process mesh every rank holds the whole dataset and generates the
+    whole padded batch (the same draws on every rank), runs the forward on
+    its shard with rank 0's weights (``model_replicas``), and gathers the
+    logits: every rank returns the whole dict, on its own device."""
+    from imagetransformations_tpu_torch.pipeline.sharding import (
+        home_device, model_replicas, shard_images)
 
     ndev = mesh.shape[axis]
-    dev = mesh.devices[0]
+    dev = home_device(mesh)
     x, y = to_device(images_u8, dev), to_device(labels, dev)
     n = int(x.shape[0])
     batch_size = max(int(n if batch_size is None else batch_size), ndev)
@@ -423,20 +433,25 @@ def corruption_sweep(
     first slot; ``cell_draws`` must then give draws for the padded set),
     and the forward runs on each shard with a model replica a device
     (``evaluate_sharded``'s), the padding trimmed. Where the set divides
-    the axis each cell generates what the one-device sweep generates.
-    ``uq_extras`` is a one-device path: with a mesh it raises.
+    the axis each cell generates what the one-device sweep generates. On a
+    process mesh (``core.mesh.ProcessMesh``) every rank
+    generates the whole cell from the same seed and keeps its rows for its
+    forward; the logits are gathered, so every rank returns the whole
+    result (``device`` defaults to the rank's own). ``uq_extras`` is a
+    one-device path: with a mesh it raises.
     """
+    from imagetransformations_tpu_torch.pipeline.sharding import (
+        home_device, model_replicas, shard_images)
+
     if mesh is not None and uq_extras is not None:
         raise ValueError("corruption_sweep: uq_extras is a single-device path; pass mesh=None")
     if mesh is not None and device is None:
-        dev = mesh.devices[0]
+        dev = home_device(mesh)
     else:
         dev = entry_device(device, "corruption_sweep")
     x, y = to_device(clean_images_u8, dev), to_device(labels, dev)
     pad = 0
     if mesh is not None:
-        from imagetransformations_tpu_torch.pipeline.sharding import model_replicas, shard_images
-
         x, pad = _pad_to(x, mesh.shape[mesh_axis])
         models = model_replicas(model_fn, mesh)
     names = corruption_names or tuple(CORRUPTIONS)

@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagetransformations_tpu_torch.core.mesh import all_reduce_sum, current_batch_mesh
+
 
 class BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (same parameters, buffers and state_dict keys) that
@@ -25,7 +27,12 @@ class BatchNorm(nn.BatchNorm2d):
     weight gradient 1.5e-3 (1.2% of the largest entry) from JAX's and
     f64's, where this form is within 5e-7.
     ``forward(x, train)`` takes the mode as the JAX ``__call__`` does;
-    ``self.training`` is not read."""
+    ``self.training`` is not read. Inside ``core.mesh.batch_mesh``
+    (a training step given a batch sharded over a process mesh) ``x`` is
+    this rank's shard, and the mean and then the variance are sums over
+    every rank's shard (a differentiable ``all_reduce`` each) over the
+    global count, as GSPMD takes JAX's BatchNorm over a sharded batch: every
+    rank moves its running statistics alike."""
 
     def __init__(self, num_features: int, device=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1, device=device)
@@ -35,9 +42,16 @@ class BatchNorm(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         dims = (0, 2, 3)
-        mean = x.mean(dims)
-        centered = x - mean[:, None, None]
-        var = (centered * centered).mean(dims)
+        mesh = current_batch_mesh()
+        if mesh is None:
+            mean = x.mean(dims)
+            centered = x - mean[:, None, None]
+            var = (centered * centered).mean(dims)
+        else:  # x is this rank's shard: the statistics of every rank's
+            n = torch.tensor(float(x.numel() // x.shape[1] * mesh.size), device=x.device)
+            mean = all_reduce_sum(x.sum(dims)) / n
+            centered = x - mean[:, None, None]
+            var = all_reduce_sum((centered * centered).sum(dims)) / n
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean)

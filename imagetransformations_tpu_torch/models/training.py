@@ -26,23 +26,41 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagetransformations_tpu_torch.core.precision import full_f32
+from imagetransformations_tpu_torch.core.mesh import (
+    ShardedBatch, average_gradients, batch_mesh, local_view, mean_over_ranks, psum_mean,
+    shard_images)
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer) -> Callable:
     """Standard CE step: ``step(x, y) -> (loss, accuracy)`` (0-dim tensors),
     the forward in training mode (``model(x, True)``). After a step each
-    parameter's ``.grad`` holds the batch's gradient."""
+    parameter's ``.grad`` holds the batch's gradient.
 
-    def step(x: torch.Tensor, y: torch.Tensor):
+    ``x`` may be a ``ShardedBatch`` on a process mesh (``y`` then the
+    global labels or their ``ShardedBatch``): each rank runs its shard,
+    BatchNorm takes the global batch statistics, the gradients are averaged
+    over the ranks, and the optimizer step, replicated, leaves the same
+    parameters on every rank; the loss and the accuracy are the global
+    batch's (``psum_mean``)."""
+
+    def step(x, y):
+        x, mesh = local_view(x)
+        if mesh is not None:
+            y = shard_images(y, mesh).shards[0]
         optimizer.zero_grad(set_to_none=True)
-        with full_f32():
+        with full_f32(), batch_mesh(mesh):
             logits = model(x, True).to(torch.float32)
             loss = F.cross_entropy(logits, y.long())
             loss.backward()
+        if mesh is not None:
+            average_gradients(model.parameters(), mesh)
         optimizer.step()
         with torch.no_grad():
-            acc = torch.mean((torch.argmax(logits, -1) == y).to(torch.float32))
-        return loss.detach(), acc
+            correct = (torch.argmax(logits, -1) == y).to(torch.float32)
+        if mesh is None:
+            return loss.detach(), torch.mean(correct)
+        return (mean_over_ranks(loss, mesh),
+                psum_mean(ShardedBatch((correct,), mesh)))
 
     return step
 

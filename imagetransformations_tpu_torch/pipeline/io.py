@@ -7,8 +7,9 @@ L0 layer:
 - ``load_cifar10c_npy``   <- transformation.py:19-71 (npy corruption tensors,
   fixed severity sample indices) and FINAL_cifar_corrupted.py:45-48
   (sev*10000 slicing)
-- ``global_batch_from_host_shards`` <- the JAX package's multi-host input
-  assembly, in one process (its scope is stated there)
+- ``shard_files_for_host`` and ``global_batch_from_host_shards`` <- the
+  JAX package's multi-host input: a file slice and a batch shard a rank of
+  a ``torch.distributed`` group
 - ``prefetch_to_device``  <- DataLoader(num_workers=N) equivalent: a
   background thread stages host batches from pinned buffers onto a side
   CUDA stream while the current batch computes.
@@ -45,15 +46,24 @@ def walk_image_files(root: str, exts: tuple[str, ...] = IMAGE_EXTS) -> list[str]
     return out
 
 
-def shard_files_for_host(paths: list[str], process_index: int = 0,
-                         process_count: int = 1) -> list[str]:
+def shard_files_for_host(paths: list[str], process_index: int | None = None,
+                         process_count: int | None = None) -> list[str]:
     """Deterministic per-process slice of a global file list.
 
     Each process walks the same folder and takes its contiguous slice
     ``[idx*n//cnt, (idx+1)*n//cnt)``: shard sizes stay within one file of
-    each other, and each process's reads stay sequential. The caller names
-    its index and the process count (``torch.distributed``'s rank and world
-    size, say); one process sees the whole list."""
+    each other, and each process's reads stay sequential. The index and
+    the count default to the rank and world size of an initialized
+    ``torch.distributed`` group (JAX: ``jax.process_index()`` /
+    ``process_count()``), else (0, 1): one process sees the whole list.
+    Explicit values win."""
+    import torch.distributed as dist
+
+    grouped = dist.is_available() and dist.is_initialized()
+    if process_index is None:
+        process_index = dist.get_rank() if grouped else 0
+    if process_count is None:
+        process_count = dist.get_world_size() if grouped else 1
     idx, cnt = int(process_index), int(process_count)
     if cnt <= 1:
         return list(paths)
@@ -65,25 +75,36 @@ def shard_files_for_host(paths: list[str], process_index: int = 0,
 
 
 def global_batch_from_host_shards(local_batch, mesh, axis: str = "data"):
-    """The batch as ``evaluate_sharded`` and ``sharded_chain_fn`` consume it:
-    in one process, ``pipeline.sharding.shard_images`` of ``local_batch``
-    over ``mesh[axis]``.
+    """The batch as ``evaluate_sharded`` and ``sharded_chain_fn`` consume it.
 
-    Scope: the port's mesh is one process (``pipeline.sharding``). JAX's
-    ``make_array_from_process_local_data`` assembles one global array from
-    every host's local rows; the port has no array across processes, so
-    under an initialized ``torch.distributed`` group of more than one
-    process this raises ``RuntimeError``: each process shards its own
-    batch over its own mesh instead."""
+    On a process mesh (``core.mesh.ProcessMesh``) each rank's
+    ``local_batch`` (the rows of its ``shard_files_for_host`` slice) is its
+    shard of one global batch, in rank order: JAX's
+    ``make_array_from_process_local_data``. The ranks exchange their row
+    counts, and unequal shards raise ``ValueError`` on every rank, as JAX's
+    batch must divide the axis. In one process it is
+    ``pipeline.sharding.shard_images`` of ``local_batch`` over
+    ``mesh[axis]``; under a group of more than one process that takes a
+    process mesh (``RuntimeError`` otherwise: each process would hold a
+    batch of its own)."""
     import torch.distributed as dist
 
-    from imagetransformations_tpu_torch.pipeline.sharding import shard_images
+    from imagetransformations_tpu_torch.core.mesh import (
+        ProcessMesh, ShardedBatch, _as_tensor, all_gather, shard_images)
 
+    if isinstance(mesh, ProcessMesh):
+        local = _as_tensor(local_batch)
+        rows = torch.tensor([int(local.shape[0])], dtype=torch.int64, device=mesh.device)
+        counts = [int(c) for c in torch.cat(all_gather(rows, mesh))]
+        if len(set(counts)) != 1:
+            raise ValueError(f"global_batch_from_host_shards: the ranks hold {counts} rows; "
+                             f"the batch must split into equal shards over mesh axis {axis!r}")
+        return ShardedBatch((local.to(mesh.device),), mesh, axis, 0)
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         raise RuntimeError(
-            "global_batch_from_host_shards: the port's mesh is one process; a batch across "
-            f"{dist.get_world_size()} processes has no global array here. Shard each "
-            "process's batch over its own mesh (pipeline.sharding.shard_images)")
+            "global_batch_from_host_shards: under a torch.distributed group of "
+            f"{dist.get_world_size()} processes the mesh must be a process mesh "
+            "(pipeline.sharding.init_process_mesh)")
     return shard_images(local_batch, mesh, axis)
 
 

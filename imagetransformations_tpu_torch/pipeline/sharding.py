@@ -6,13 +6,15 @@ process's local devices and runs each op on every device's block (the
 transforms are a pure map over images: no collectives; the metric
 reductions ``psum`` a scalar). The port keeps that design in one process:
 
-- ``Mesh``: an ordered tuple of ``torch.device`` slots and one axis name;
-  ``mesh.shape[axis]`` is the number of slots, as in JAX. A device may fill
-  several slots, so one H100 holds 4 shards (``data_mesh(4,
-  device="cuda:0")``) and the CPU 8, and the shard arithmetic and the halo
-  exchange (``ops.sharded_stencil``) run for real on one card.
-- ``ShardedBatch``: one tensor a slot, in batch order (``dim`` 0; rows for
-  the halo blur), each on its slot's device, with ``gather()``.
+- ``Mesh`` (``core.mesh``): an ordered tuple of ``torch.device`` slots
+  and one axis name; ``mesh.shape[axis]`` is the number of slots, as in
+  JAX. A device may fill several slots, so one H100 holds 4 shards
+  (``data_mesh(4, device="cuda:0")``) and the CPU 8, and the shard
+  arithmetic and the halo exchange (``ops.sharded_stencil``) run for real
+  on one card.
+- ``ShardedBatch`` (``core.mesh``): one tensor a slot, in batch order
+  (``dim`` 0; rows for the halo blur), each on its slot's device, with
+  ``gather()``.
 - ``shard_images`` splits a batch over the slots (the batch must divide
   the axis, as JAX's ``P(axis)`` placement requires); ``sharded_apply``
   runs a per-batch function on each shard; ``psum_mean`` and
@@ -21,52 +23,41 @@ reductions ``psum`` a scalar). The port keeps that design in one process:
   kernels included) on each shard with that shard's slice of every
   per-image parameter.
 
-No ``torch.distributed``: NCCL refuses two ranks on one GPU, and the JAX
-mesh is one process too. The host issues the shards one after another; on
-distinct devices the launches are asynchronous, so their kernels can
-overlap. The reference's only parallelism is a torch DataParallel wrap
-(attacks/fgsm.py:58).
+The host issues the shards one after another; on distinct devices the
+launches are asynchronous, so their kernels can overlap. The reference's
+only parallelism is a torch DataParallel wrap (attacks/fgsm.py:58).
+
+Each function also takes a ``ProcessMesh`` (``core.mesh``), whose
+slots are the ranks of a ``torch.distributed`` group: there a
+``ShardedBatch`` holds this rank's shard alone (its ``shape`` the global
+one), ``gather()`` is an ``all_gather`` in rank order, ``psum_mean`` an
+``all_reduce``, each function runs on the local shard, and
+``model_replicas`` broadcasts rank 0's weights. Every rank calls each
+function with the same global arguments.
 """
 
 from __future__ import annotations
 
 import copy
-import dataclasses
-from typing import Callable, Sequence
+from typing import Callable
 
 import numpy as np
 import torch
 
-
-def _slot_device(d) -> torch.device:
-    d = torch.device(d)
-    return torch.device("cuda", 0) if d.type == "cuda" and d.index is None else d
-
-
-@dataclasses.dataclass(frozen=True)
-class Mesh:
-    """A 1-D device mesh of one process: ``devices[i]`` holds shard i of
-    every array sharded over ``axis_names[0]``."""
-
-    devices: tuple[torch.device, ...]
-    axis_names: tuple[str, ...] = ("data",)
-
-    def __post_init__(self):
-        devices = tuple(_slot_device(d) for d in self.devices)
-        if not devices:
-            raise ValueError("a mesh needs at least one device")
-        if len(self.axis_names) != 1:
-            raise ValueError(f"the port's mesh has one axis, got {self.axis_names}")
-        object.__setattr__(self, "devices", devices)
-        object.__setattr__(self, "axis_names", tuple(self.axis_names))
-
-    @property
-    def shape(self) -> dict[str, int]:
-        return {self.axis_names[0]: len(self.devices)}
-
-    @property
-    def size(self) -> int:
-        return len(self.devices)
+from imagetransformations_tpu_torch.core import mesh as cm
+from imagetransformations_tpu_torch.core.mesh import (  # noqa: F401
+    Mesh,
+    ProcessMesh,
+    ShardedBatch,
+    _slot_device,
+    home_device,
+    init_process_mesh,
+    local_slots,
+    local_view,
+    psum_mean,
+    shard_images,
+    split,
+)
 
 
 def data_mesh(n_devices: int | None = None, axis: str = "data",
@@ -85,66 +76,7 @@ def data_mesh(n_devices: int | None = None, axis: str = "data",
     return Mesh(tuple(devs), (axis,))
 
 
-@dataclasses.dataclass(frozen=True)
-class ShardedBatch:
-    """An array split over a mesh axis along ``dim``: ``shards[i]`` on
-    ``mesh.devices[i]``, in order."""
-
-    shards: tuple[torch.Tensor, ...]
-    mesh: Mesh
-    axis: str = "data"
-    dim: int = 0
-
-    @property
-    def shape(self) -> tuple[int, ...]:
-        s = list(self.shards[0].shape)
-        s[self.dim] = sum(int(t.shape[self.dim]) for t in self.shards)
-        return tuple(s)
-
-    def __len__(self) -> int:
-        return self.shape[0]
-
-    def gather(self, device: str | torch.device | None = None) -> torch.Tensor:
-        """The whole array on ``device`` (default: the first slot's)."""
-        dev = self.mesh.devices[0] if device is None else torch.device(device)
-        return torch.cat([t.to(dev) for t in self.shards], dim=self.dim)
-
-    def __array__(self, dtype=None, copy=None):
-        out = self.gather("cpu").numpy()
-        return out if dtype is None else out.astype(dtype)
-
-
-def _as_tensor(x) -> torch.Tensor:
-    if isinstance(x, ShardedBatch):
-        return x.gather()
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
-
-
-def split(x, mesh: Mesh, axis: str = "data", dim: int = 0) -> ShardedBatch:
-    """``x`` (an array, a tensor or a ``ShardedBatch``) cut into equal
-    blocks along ``dim``, block i moved to ``mesh.devices[i]``."""
-    n_shards = mesh.shape[axis]
-    x = _as_tensor(x)
-    size = int(x.shape[dim])
-    if size % n_shards:
-        raise ValueError(f"dimension {dim} of size {size} does not divide into "
-                         f"{n_shards} shards over mesh axis {axis!r}")
-    step = size // n_shards
-    return ShardedBatch(tuple(x.narrow(dim, i * step, step).contiguous().to(d)
-                              for i, d in enumerate(mesh.devices)), mesh, axis, dim)
-
-
-def shard_images(images, mesh: Mesh, axis: str = "data") -> ShardedBatch:
-    """Place an NHWC batch (or any batch-major array) with its batch
-    dimension split over the mesh; a batch already so placed is returned
-    as it is."""
-    if (isinstance(images, ShardedBatch) and images.mesh == mesh and images.axis == axis
-            and images.dim == 0):
-        return images
-    return split(images, mesh, axis, 0)
-
-
-def sharded_apply(fn: Callable[..., torch.Tensor], mesh: Mesh,
+def sharded_apply(fn: Callable[..., torch.Tensor], mesh: Mesh | ProcessMesh,
                   axis: str = "data") -> Callable[..., ShardedBatch]:
     """``fn`` (a pure per-batch function, first argument the NHWC batch) on
     each shard of the batch, on its slot's device; the outputs keep the
@@ -157,44 +89,37 @@ def sharded_apply(fn: Callable[..., torch.Tensor], mesh: Mesh,
     return wrapped
 
 
-def psum_mean(x: ShardedBatch | Sequence[torch.Tensor], axis_name: str = "data") -> torch.Tensor:
-    """The cross-shard mean of JAX's ``psum(mean(x)) / psum(1)``: each
-    shard's mean, summed in slot order on the first shard's device, over
-    the number of shards (equal shards: the global mean)."""
-    shards = x.shards if isinstance(x, ShardedBatch) else tuple(x)
-    dev = shards[0].device
-    total = None
-    for s in shards:
-        m = torch.mean(s).to(dev)
-        total = m if total is None else total + m
-    return total / torch.tensor(float(len(shards)), dtype=total.dtype, device=dev)
-
-
-def sharded_accuracy(logits, labels, mesh: Mesh, axis: str = "data") -> float:
+def sharded_accuracy(logits, labels, mesh: Mesh | ProcessMesh, axis: str = "data") -> float:
     """Global accuracy over batch-sharded logits and labels without
     gathering them: each shard scores itself, and only the per-shard means
     cross devices (``psum_mean``)."""
     lg, lb = shard_images(logits, mesh, axis), shard_images(labels, mesh, axis)
-    correct = [(torch.argmax(a, dim=-1) == b).to(torch.float32)
-               for a, b in zip(lg.shards, lb.shards)]
-    return float(psum_mean(correct, axis))
+    correct = tuple((torch.argmax(a, dim=-1) == b).to(torch.float32)
+                    for a, b in zip(lg.shards, lb.shards))
+    return float(psum_mean(ShardedBatch(correct, mesh, axis), axis))
 
 
-def model_replicas(model_fn, mesh: Mesh) -> list:
-    """``model_fn`` for each slot: an ``nn.Module`` is copied once to each
-    distinct device that does not hold it; any other callable serves
-    every slot as it is."""
+def model_replicas(model_fn, mesh: Mesh | ProcessMesh) -> list:
+    """``model_fn`` for each local slot: an ``nn.Module`` is copied once to
+    each distinct device that does not hold it; any other callable serves
+    every slot as it is. On a process mesh the module's parameters and
+    buffers are then overwritten with rank 0's (``broadcast``), so every
+    rank runs the same weights."""
+    slots = [d for _, d in local_slots(mesh)]
     if not isinstance(model_fn, torch.nn.Module):
-        return [model_fn] * mesh.size
+        return [model_fn] * len(slots)
     home = next((p.device for p in model_fn.parameters()), None)
     by_device: dict = {}
-    for d in mesh.devices:
+    for d in slots:
         if d not in by_device:
             by_device[d] = model_fn if home is None or d == home else copy.deepcopy(model_fn).to(d)
-    return [by_device[d] for d in mesh.devices]
+    if isinstance(mesh, ProcessMesh):
+        m = by_device[mesh.device]
+        cm.broadcast_([*m.parameters(), *m.buffers()])
+    return [by_device[d] for d in slots]
 
 
-def sharded_chain_fn(chain, mesh: Mesh, axis: str = "data", **build_kwargs):
+def sharded_chain_fn(chain, mesh: Mesh | ProcessMesh, axis: str = "data", **build_kwargs):
     """Batch-data-parallel chain: each slot runs the whole chain (the fused
     kernels included) on its shard. Returns ``fn(images, generator=None)
     -> ShardedBatch``; the batch must divide the axis.
@@ -209,7 +134,10 @@ def sharded_chain_fn(chain, mesh: Mesh, axis: str = "data", **build_kwargs):
     the global budget (which clips none of its angles; the pixels are the
     one-device chain's). ``build_kwargs`` go to ``build_chain_fn``; each
     shard's chain runs on its slot's device, and ``generator`` feeds the
-    noise ops of every shard in turn (one generator: slots on one device).
+    noise ops of every shard in turn (one generator: slots on one device;
+    on a process mesh each rank's own). On a process mesh each rank runs
+    its shard with its slice, and the budget is the whole batch's, which
+    every rank holds.
     """
     from imagetransformations_tpu_torch.pipeline.chain import OpSpec, _round_budget, build_chain_fn
 
@@ -239,7 +167,7 @@ def sharded_chain_fn(chain, mesh: Mesh, axis: str = "data", **build_kwargs):
         n = len(xs)
         step = n // n_shards
         outs = []
-        for i, (x, dev) in enumerate(zip(xs.shards, mesh.devices)):
+        for (i, dev), x in zip(local_slots(mesh), xs.shards):
             local = list(chain)
             for (si, k), v in zip(lifted, arrays):
                 if len(v) != n:

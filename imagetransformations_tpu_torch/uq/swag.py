@@ -35,6 +35,7 @@ from torch.func import functional_call
 
 from imagetransformations_tpu_torch.core.image import trig_f32
 from imagetransformations_tpu_torch.core.precision import full_f32
+from imagetransformations_tpu_torch.core.mesh import ShardedBatch, broadcast_, local_view
 
 Params = dict[str, torch.Tensor]
 
@@ -188,15 +189,26 @@ def refresh_batch_stats(model: nn.Module, params: Params, init_batch_stats: Para
     return stats
 
 
-def bma_logits(model: nn.Module, stacked_params: Params, x: torch.Tensor,
+def bma_logits(model: nn.Module, stacked_params: Params, x,
                batch_stats: Params | None = None) -> torch.Tensor:
     """[S, B, C] logits over S stacked weight samples (swag_wrapper.py:63-96
     returns them as {'logit': [B, S, C]}), evaluation mode, with the
-    BatchNorm statistics ``batch_stats`` (default: the model's own)."""
+    BatchNorm statistics ``batch_stats`` (default: the model's own).
+
+    ``x`` may be a ``ShardedBatch`` on a process mesh: every rank uses rank
+    0's samples and statistics (broadcast into copies, so the caller's
+    draws on other ranks do not matter), runs its shard, and gets the whole
+    [S, B, C] (``all_gather``)."""
+    x, mesh = local_view(x)
     stats = {} if batch_stats is None else batch_stats
+    if mesh is not None:
+        stacked_params = {k: v.clone() for k, v in stacked_params.items()}
+        stats = {k: v.clone() for k, v in (stats or dict(model.named_buffers())).items()}
+        broadcast_([*stacked_params.values(), *stats.values()])
     n = next(iter(stacked_params.values())).shape[0]
     with torch.no_grad(), full_f32():
-        return torch.stack([
+        logits = torch.stack([
             functional_call(model, {**{k: v[s] for k, v in stacked_params.items()}, **stats},
                             (x,))
             for s in range(n)])
+    return logits if mesh is None else ShardedBatch((logits,), mesh, dim=1).gather()

@@ -25,7 +25,8 @@ def _port_files():
                                          ROOT / "tools" / "time_resample.py",
                                          ROOT / "tools" / "run_uq_phases.py",
                                          ROOT / "tools" / "run_adapt_phases.py",
-                                         ROOT / "tools" / "run_mesh_phases.py"]
+                                         ROOT / "tools" / "run_mesh_phases.py",
+                                         ROOT / "tools" / "run_process_mesh.py"]
 
 
 def _imported(tree):
@@ -65,15 +66,28 @@ def test_port_files_found():
                    "adapt/conditional.py", "adapt/tta.py", "adapt/matta.py", "adapt/posthoc.py",
                    "adapt/augmix.py", "adapt/_optim.py", "utils/profiling.py",
                    "adapt/patches.py", "adapt/evolution.py", "pipeline/sharding.py",
-                   "ops/sharded_stencil.py"):
+                   "ops/sharded_stencil.py", "core/mesh.py"):
         assert f"imagetransformations_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
+    assert "tools/run_process_mesh.py" in names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = [m for m in _imported(tree) if _forbidden(m)]
+    assert not bad, f"{path}: imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted([*(PORT / "core").glob("*.py"),
+                                         *(PORT / "models").glob("*.py")]),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_core_and_models_import_no_pipeline(path):
+    """The mesh types and collectives live in ``core.mesh``: the models
+    layer (BatchNorm's cross-rank statistics, the train step) reads them
+    there, never through the transform pipeline."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported(tree) if m.startswith("imagetransformations_tpu_torch.pipeline")]
     assert not bad, f"{path}: imports {bad}"
 
 
@@ -223,6 +237,19 @@ assert sharded_gaussian_blur(x8, 1.5, mesh).gather().shape == x8.shape
 assert pipeline.global_batch_from_host_shards(x8, mesh).shape == x8.shape
 assert 0.0 <= harness.evaluate_sharded(net, space, x8, y8, mesh)["accuracy"] <= 1.0
 assert pipeline.build_chain_fn(chain, jit=False, device="cpu")(x8).shape == x8.shape
+sys.path.insert(0, "tools")
+import run_process_mesh
+pmesh = sharding.init_process_mesh("cpu", init_method="file://" + tempfile.mktemp(),
+                                   rank=0, world_size=1)
+assert (pmesh.backend, pmesh.shape) == ("gloo", {"data": 1})
+assert pipeline.shard_files_for_host(["a", "b"]) == ["a", "b"]
+assert pipeline.global_batch_from_host_shards(x8, pmesh).gather().shape == x8.shape
+assert sharded_gaussian_blur(x8, 1.5, pmesh).gather().shape == x8.shape
+assert 0.0 <= harness.evaluate_sharded(net, space, x8, y8, pmesh)["accuracy"] <= 1.0
+step = training.make_train_step(net, torch.optim.SGD(net.parameters(), lr=0.0))
+assert step(sharding.shard_images(xm8, pmesh), y8)[0].shape == ()
+assert run_process_mesh.SIZES["small"]["blocks"] == (1, 1, 1)
+torch.distributed.destroy_process_group()
 print("ok")
 """
     env = dict(os.environ)

@@ -235,7 +235,7 @@ def test_global_batch_from_host_shards(meshes, rng, monkeypatch):
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(RuntimeError, match="one process"):
+    with pytest.raises(RuntimeError, match="must be a process mesh"):
         global_batch_from_host_shards(local, pm)
 
 

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s phases ``patches``, ``evolution`` and ``sharding``
-alone on one GPU (the caller's TF32 on, as the script runs them), each to
+"""Run ``chip_smoke.py``'s phases ``patches``, ``evolution``, ``sharding`` and
+``processes`` alone on one GPU (the caller's TF32 on, as the script runs them), each to
 its end: a phase that breaks a budget prints its row and its traceback, and
 the exit code is then 1. The kernels are built first, as the script builds
 them, so that no phase times a build. For iterating on these phases
-without the whole script:
+without the whole script (naming phases runs those alone):
 
-    python3 tools/run_mesh_phases.py
+    python3 tools/run_mesh_phases.py [patches] [evolution] [sharding] [processes]
 """
 
 import os
@@ -21,7 +21,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def main() -> int:
+def main(only: list[str]) -> int:
     if not torch.cuda.is_available():
         print("run_mesh_phases: no CUDA device available", file=sys.stderr)
         return 1
@@ -45,11 +45,22 @@ def main() -> int:
         t0 = time.time()
         model, space = cs.demo_model(torch, xtr, ytr)
         print("model_s", time.time() - t0, flush=True)
+        shard_ms: dict = {}
+
+        def sharding():
+            launched, ms = cs.sharding_phase(torch, mk, model, space, xte, yte)
+            shard_ms.update(ms)
+            return launched
+
         phases = (("patches", lambda: cs.patches_phase(torch, mk, model, space, xtr, ytr, xte,
                                                        yte)),
                   ("evolution", lambda: cs.evolution_phase(torch, mk, model, space, xte)),
-                  ("sharding", lambda: cs.sharding_phase(torch, mk, model, space, xte, yte)))
+                  ("sharding", sharding),
+                  ("processes", lambda: cs.processes_phase(torch, mk, model, space, xte, yte,
+                                                           shard_ms)))
         for name, phase in phases:
+            if only and name not in only:
+                continue
             t0 = time.time()
             try:
                 print(name, "launches", phase(), flush=True)
@@ -61,4 +72,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
