@@ -602,7 +602,7 @@ def main_path_runs():
     kernel-carried types are held against the plain versions on the values
     the sweep drew, or is a callable that computes the run's plain
     composition from its input. ``kernels`` are the launch counters the run
-    must raise. tools/profile_torch_port.py profiles the same runs."""
+    must raise."""
     import torch
 
     from imagetransformations_tpu_torch import (

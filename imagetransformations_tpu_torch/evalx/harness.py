@@ -27,6 +27,11 @@ Counterpart of ``imagetransformations_tpu/evalx/harness.py``:
   the forward run on each shard with a model replica a device, the logits
   gathered and the padding trimmed.
 
+Each sweep cell is span ``sweep.cell`` (corruption, severity), with
+children ``sweep.generate``, ``sweep.forward`` and ``sweep.odin`` (each
+batch's) and ``sweep.stats``; its reads of the results go through
+``utils.profiling.host_read`` (both recorded only while a profiler runs).
+
 The JAX package's jit caches have no counterpart: PyTorch runs eagerly.
 """
 
@@ -45,6 +50,7 @@ from imagetransformations_tpu_torch.uq import mahalanobis as _maha
 from imagetransformations_tpu_torch.uq import metrics as um
 from imagetransformations_tpu_torch.uq.calibration import auroc, youden_threshold
 from imagetransformations_tpu_torch.uq.odin import odin_uncertainty
+from imagetransformations_tpu_torch.utils import profiling
 
 
 def _elastic(x, v, g, **draws):
@@ -251,7 +257,8 @@ def _forward_all(model_fn, to_model_space, images_u8: torch.Tensor, batch_size: 
     out = []
     with torch.no_grad():
         for xb, real in _batches(images_u8, batch_size):
-            out.append(model_fn(to_model_space(xb))[:real])
+            with profiling.span("sweep.forward"):
+                out.append(model_fn(to_model_space(xb))[:real])
     return torch.cat(out)
 
 
@@ -264,10 +271,12 @@ def _forward_uq_all(model_fn, feats_logits_fn, to_model_space, images_u8: torch.
     beside the logit metrics, FINAL_cifar_corrupted.py:237-262)."""
     lg, ft, od = [], [], []
     for xb, real in _batches(images_u8, batch_size):
-        xm = to_model_space(xb)
-        with torch.no_grad():
-            feats, logits = feats_logits_fn(xm)
-        u = odin_uncertainty(model_fn, xm, float(odin_temperature), float(odin_eps))
+        with profiling.span("sweep.forward"):
+            xm = to_model_space(xb)
+            with torch.no_grad():
+                feats, logits = feats_logits_fn(xm)
+        with profiling.span("sweep.odin"):
+            u = odin_uncertainty(model_fn, xm, float(odin_temperature), float(odin_eps))
         lg.append(logits[:real])
         ft.append(feats[:real])
         od.append(u[:real])
@@ -465,31 +474,36 @@ def corruption_sweep(
     for name in names:
         out[name] = {}
         for sev in severities:
-            if cell_draws is None:
-                imgs = corrupt(x, name, sev, corruption_generator(seed, name, sev, dev))
-            else:
-                imgs = corrupt(x, name, sev, None, **{
-                    k: to_device(v, dev) for k, v in cell_draws(name, sev).items()})
-            if mesh is not None:
-                logits = _sharded_forward(models, to_model_space,
-                                          shard_images(imgs, mesh, mesh_axis))
-                logits = logits[: logits.shape[0] - pad]
-                cols = metric_names
-            elif uq_extras is None:
-                logits = _forward_all(model_fn, to_model_space, imgs, batch_size)
-                cols = metric_names
-            else:
-                logits, feats, od = _forward_uq_all(
-                    model_fn, uq_extras["feats_logits_fn"], to_model_space, imgs,
-                    batch_size, odin_t, odin_e)
-                cols = metric_names + ("odin", "mahalanobis")
-            with torch.no_grad():
-                acc, errors, aucs = _error_aurocs(logits, y, metric_names)
-                if uq_extras is not None:
-                    aucs += [auroc(od, errors), auroc(_maha.score(state, feats), errors)]
-                aucs_np = torch.stack(aucs).cpu().numpy() if aucs else np.zeros(0, np.float32)
-            out[name][sev] = {"accuracy": float(acc),
-                              "auroc": {m: float(a) for m, a in zip(cols, aucs_np)}}
+            with profiling.span("sweep.cell", corruption=name, severity=sev):
+                with profiling.span("sweep.generate"):
+                    if cell_draws is None:
+                        imgs = corrupt(x, name, sev, corruption_generator(seed, name, sev, dev))
+                    else:
+                        imgs = corrupt(x, name, sev, None, **{
+                            k: to_device(v, dev) for k, v in cell_draws(name, sev).items()})
+                if mesh is not None:
+                    with profiling.span("sweep.forward"):
+                        logits = _sharded_forward(models, to_model_space,
+                                                  shard_images(imgs, mesh, mesh_axis))
+                    logits = logits[: logits.shape[0] - pad]
+                    cols = metric_names
+                elif uq_extras is None:
+                    logits = _forward_all(model_fn, to_model_space, imgs, batch_size)
+                    cols = metric_names
+                else:
+                    logits, feats, od = _forward_uq_all(
+                        model_fn, uq_extras["feats_logits_fn"], to_model_space, imgs,
+                        batch_size, odin_t, odin_e)
+                    cols = metric_names + ("odin", "mahalanobis")
+                with profiling.span("sweep.stats"), torch.no_grad():
+                    acc, errors, aucs = _error_aurocs(logits, y, metric_names)
+                    if uq_extras is not None:
+                        aucs += [auroc(od, errors), auroc(_maha.score(state, feats), errors)]
+                    aucs_np = (profiling.host_read(torch.stack(aucs), "sweep.aurocs").numpy()
+                               if aucs else np.zeros(0, np.float32))
+                    out[name][sev] = {
+                        "accuracy": float(profiling.host_read(acc, "sweep.accuracy")),
+                        "auroc": {m: float(a) for m, a in zip(cols, aucs_np)}}
     return out
 
 

@@ -46,6 +46,7 @@ from imagetransformations_tpu_torch.core.image import as_batch, restore_layout, 
 from imagetransformations_tpu_torch.ops import _corruption_host as host
 from imagetransformations_tpu_torch.ops.stencil import _reflect_indices
 from imagetransformations_tpu_torch.ops.warp import pil_resize
+from imagetransformations_tpu_torch.utils import profiling
 
 F32 = torch.float32
 
@@ -212,7 +213,7 @@ def _grouped_conv2d(x: torch.Tensor, kernels, mode: str) -> torch.Tensor:
     if shared:
         live = kernels != 0
     else:
-        live = (kernels != 0).any(dim=0).cpu().numpy()
+        live = profiling.host_read((kernels != 0).any(dim=0), "corruptions.live_taps").numpy()
     acc = None
     for i in range(k):
         for j in range(k):
@@ -581,7 +582,8 @@ def elastic_transform_affine(img: torch.Tensor, alpha: float, sigma: float, alph
     else:
         jitter = _batch_draw(jitter, x, 3)
     pts1 = host.elastic_points(h, w)
-    pts2 = pts1[None] + jitter.cpu().numpy().astype(np.float32)
+    pts2 = pts1[None] + profiling.host_read(jitter, "corruptions.elastic_jitter").numpy().astype(
+        np.float32)
     minv = host.affine_from_points(pts2, np.broadcast_to(pts1, pts2.shape)).astype(np.float32)
     m = torch.from_numpy(minv.reshape(n, 6)).to(x.device).view(n, 6, 1, 1)
     yy = torch.arange(h, dtype=F32, device=x.device).view(1, h, 1)

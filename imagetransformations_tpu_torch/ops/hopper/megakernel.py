@@ -47,6 +47,7 @@ from imagetransformations_tpu_torch.ops.stencil import (
     gaussian_blur,
     gaussian_taps,
 )
+from imagetransformations_tpu_torch.utils import profiling
 
 #: kernel launches, by kernel (the package-wide counters of ``_lib``): each
 #: wrapper call that launches its kernel (the luma kernel: its row launch
@@ -715,8 +716,8 @@ def fused_blur_rotate_batched(
     if not isinstance(img, torch.Tensor) or img.ndim != 4 or img.dtype != torch.uint8:
         raise ValueError("expected an NHWC uint8 tensor")
     n, h, w, c = img.shape
-    # the budget check reads host angles on the host: a device read would
-    # wait for every launch queued before it
+    # the budget check reads host angles on the host; device angles are read
+    # back once here, which waits for every launch queued before it
     if isinstance(angles_deg, torch.Tensor) and angles_deg.device.type != "cpu":
         checked = ang = angles_deg.to(img.device, torch.float32)
     else:
@@ -724,7 +725,7 @@ def fused_blur_rotate_batched(
         ang = checked.to(img.device)
     if ang.numel() not in (1, n):
         raise ValueError(f"expected one angle or {n}, got {ang.numel()}")
-    amax = float(checked.abs().max())
+    amax = float(profiling.host_read(checked.abs().max(), "rotation.max_angle"))
     if amax > float(max_angle_deg) + 1e-6:
         raise ValueError(
             f"fused_blur_rotate_batched: max |angle| {amax} exceeds the routing "

@@ -24,7 +24,14 @@ Four types run hand-written CUDA kernels on the card, by flag:
   matrix products in plain PyTorch.
 
 The other four are plain PyTorch, as they are XLA code in the JAX package.
-No type reads anything back from the card.
+The rotation type reads its largest drawn angle back from the card once a
+call (``fused_blur_rotate_batched``'s budget check), which waits for every
+launch queued before it; no other type at the default flags reads anything
+back, but each type's draw (``sample_indices``) and the LANCZOS scale copy
+a small host table to the card, and such a copy from pageable memory waits
+for the queue too. Each call is span ``apply_all.call`` and each type, its
+draw included, span ``apply_all.<type>`` (``utils.profiling``: recorded
+only while a profiler runs).
 """
 
 from __future__ import annotations
@@ -51,9 +58,13 @@ from imagetransformations_tpu_torch.ops.hopper.resample import (
 )
 from imagetransformations_tpu_torch.ops.hopper import rotate_gather as rg
 from imagetransformations_tpu_torch.ops.hopper.shear import shear_rows_logrouted
+from imagetransformations_tpu_torch.utils import profiling
 
 TYPES = ("scale", "rotation", "lighten_darken", "gaussian_noise", "translation", "contrast",
          "blur", "shear")
+
+#: the span of each type in ``apply_all_transformations``
+_TYPE_SPANS = {t: "apply_all." + t for t in PARAM_GRIDS}
 
 
 def _grid(name: str) -> tuple[float, ...]:
@@ -194,7 +205,8 @@ def _rotation_pil(images: torch.Tensor, idx: torch.Tensor, grid: tuple) -> torch
     n, h, w, _ = images.shape
     table = _rotation_table(tuple(grid), w, h, images.device)
     if table is None:
-        values = torch.tensor(grid, dtype=torch.float32)[idx.cpu()]
+        host_idx = profiling.host_read(idx, "rotation_pil.indices")
+        values = torch.tensor(grid, dtype=torch.float32)[host_idx]
         return rg.pil_rotate_nearest_batched(images, values)
     return rg.pil_rotate_nearest(images.contiguous(), table[idx.to(images.device)], 0)
 
@@ -247,19 +259,19 @@ def apply_all_transformations(
         raise ValueError(f"generator on {generator.device}, images on {dev}")
     n = x.shape[0]
     out: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
-    for t in types:
-        idx, values = sample_indices(generator, t, n)
-        if t == "rotation" and pil_parity_rotation:
-            results = _rotation_pil(x, idx, _grid(t))
-        elif t == "shear" and pil_parity_scale_shear:
-            results = _shear_pil(x, idx, values)
-        elif t == "blur":
-            results = _blur_grid(x, idx, values)
-        elif t == "scale" and pil_parity_scale_shear:
-            results = _apply_per_value(x, t, values)
-        elif t in _BATCHED_OPS:
-            results = _BATCHED_OPS[t](x, values, generator)
-        else:
-            continue
-        out[t] = (values, results)
+    with profiling.span("apply_all.call"):
+        for t in types:
+            with profiling.span(_TYPE_SPANS[t]):
+                idx, values = sample_indices(generator, t, n)
+                if t == "rotation" and pil_parity_rotation:
+                    results = _rotation_pil(x, idx, _grid(t))
+                elif t == "shear" and pil_parity_scale_shear:
+                    results = _shear_pil(x, idx, values)
+                elif t == "blur":
+                    results = _blur_grid(x, idx, values)
+                elif t == "scale" and pil_parity_scale_shear:
+                    results = _apply_per_value(x, t, values)
+                else:
+                    results = _BATCHED_OPS[t](x, values, generator)
+            out[t] = (values, results)
     return out

@@ -20,7 +20,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "imagetransformations_
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "profile_torch_port.py",
+                                         ROOT / "tools" / "check_spans.py",
                                          ROOT / "tools" / "time_blur.py",
                                          ROOT / "tools" / "time_resample.py",
                                          ROOT / "tools" / "run_uq_phases.py",
