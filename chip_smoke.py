@@ -32,8 +32,11 @@ events around calls queued behind a spin kernel); the rgb kernel's entries add r
 and the sweep's use at 4096x32x32, and the BICUBIC shear's, the
 bilinear zoom's and the NEAREST rotation's entries a row at 4096x32x32 (the sweeps' CIFAR use; their
 parity cases add the shear budget's edge 1.05, negative factors and
-random_zoom at 0.5 and 4); phase ``geometry`` times the luma kernel's
-band rows and images a block at 4096x32x32 and 32x512x512. Before those,
+random_zoom at 0.5 and 4), the luma kernel's entry rows on its resident
+route (S1 in a cluster's shared memory) at the chain cell's 1024x224x224,
+at 32x512x512 and at two shapes of the route's edges, each beside the band
+route; phase ``geometry`` times the luma kernel's band rows and images a
+block at 4096x32x32 and 32x512x512. Before those,
 phase ``trig`` holds the per-image shifts and rotation matrices computed on
 the card to the CPU's bit for bit, and phase ``folder`` runs the
 reference's main script: folders of JPEGs (32 at 512x512, 512 at 32x32)
@@ -120,6 +123,7 @@ UNFUSED_OPS_PER_S = 67e12 / 2
 BLUR_RADIUS, ANGLE = 1.5, 15.0
 # main-path batches: (n, h, w), the shapes bench.py grades
 SHAPE_512, SHAPE_224, SHAPE_32 = (32, 512, 512), (128, 224, 224), (4096, 32, 32)
+SHAPE_CHAIN = (1024, 224, 224)  # the benchmark's chain cell: one call's batch
 # the reference's grids (core/grids.py): rotation -22.5:2.5:22.5, shear 0:0.1:1
 ROTATION_GRID = [-22.5 + 2.5 * i for i in range(19)]
 SHEAR_GRID = [round(0.1 * i, 1) for i in range(11)]
@@ -820,6 +824,44 @@ def rgb_modes(torch, mk, sh, kernel, run_launches) -> list:
                              want, bound(n, h, w, 3, 3, ops_rgb(0, True, False, False)),
                              run_launches.get("apply_all_transformations 32 (cifar)",
                                               {}).get(kernel, 0)))
+    return rows
+
+
+def luma_route(mk, h: int, w: int, p: int) -> str:
+    """The route the luma kernel's wrapper takes at (h, w, p) by itself."""
+    return "resident" if mk._resident_geometry(h, w, p) is not None else "band"
+
+
+def luma_modes(torch, mk, run_launches) -> list:
+    """The kernels line's further rows of the luma kernel (#1) on its
+    resident route (S1 in a cluster's shared memory), each held at 0 LSB
+    against the plain version, with the band route's times beside it: the
+    chain cell's call (1024x224x224), 32x512x512, and two shapes at the
+    route's edges (128 rows of the widest row it takes, clusters of 8; an
+    odd shape, clusters of 2)."""
+    rows = []
+    # the main-path run whose launches a row reports (none at the edges)
+    runs = {SHAPE_CHAIN: "chain blur>rotate>gray 224", SHAPE_512: "chain blur>rotate>gray 512"}
+    for i, shape in enumerate((SHAPE_CHAIN, SHAPE_512, (128, 128, 512), (352, 160, 149))):
+        n, h, w = shape
+        x = images(torch, shape, SEED + 104 + i)
+        taps, p, k1, f1, k2, f2 = mk._params(h, w, BLUR_RADIUS, ANGLE, x.device)
+        if luma_route(mk, h, w, p) != "resident":
+            fail(f"luma_blur_rotate {shape}: the host does not take the resident route")
+        run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0)
+        want = mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0)
+        row = mode_row(torch, f"stream gray r {BLUR_RADIUS} {ANGLE} deg", shape, run, want,
+                       bound(n, h, w, 3, 3, ops_luma(p)),
+                       run_launches.get(runs.get(shape), {}).get("luma_blur_rotate_resident", 0))
+        row["route"], row["cluster"] = "resident", mk._resident_geometry(h, w, p).cluster
+        band = mk._luma_geometry(h, w, p)
+        alt = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, geometry=band)
+        if max_lsb(torch, alt(), want) != 0:
+            fail(f"luma_blur_rotate {shape}: the band route differs from the plain version")
+        row["band_route"] = {"geometry": list(band), "ms": time_ms(torch, alt, 20),
+                             "device_ms": device_ms(torch, alt, 20)}
+        rows.append(row)
+        del x, want
     return rows
 
 
@@ -3125,7 +3167,9 @@ def main() -> int:
             g = mk._luma_geometry(h, w, p)
             other = (g._replace(groups=1) if g.groups > 1 else
                      g._replace(seg_w=128, win=128 + 2, threads=33, groups=1))
-            row["geometry"], row["other_geometry"] = list(g), list(other)
+            row["route"] = luma_route(mk, h, w, p)
+            row["geometry"] = list(mk._resident_geometry(h, w, p) or g)
+            row["other_geometry"] = list(other)
             alt = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, geometry=other)
             row["max_lsb_vs_other_geometry"] = max_lsb(torch, out, alt)
             err = max(err, row["max_lsb_vs_other_geometry"])
@@ -3170,7 +3214,8 @@ def main() -> int:
             g = mk._luma_geometry(h, w, p)
             kern = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0)
             plain = mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0)
-            row["geometry"] = list(g)
+            row["route"] = luma_route(mk, h, w, p)
+            row["geometry"] = list(mk._resident_geometry(h, w, p) or g)
             if g.groups > 1:
                 one = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0,
                                           geometry=g._replace(groups=1))
@@ -3722,6 +3767,9 @@ def main() -> int:
                 run = lambda: mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, 0)
                 plain = lambda: mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0)
                 b_ms, b_by = bound(n, h, w, 3, 3, ops_luma(p))
+                extra = {"luma_route": luma_route(mk, h, w, p)}
+                if kernel == "luma_blur_rotate":
+                    extra["modes"] = luma_modes(torch, mk, run_launches_by_label)
             else:
                 run = lambda: mk.rgb_blur_rotate(x, taps, p, k1, f1, k2, f2, 0, not stream,
                                                  gray, ident, slopes=slopes)

@@ -44,8 +44,12 @@ SIGNATURES = {
     # x, s1 (the f32 plane between the launches), out, taps, p, k1, f1, k2,
     # f2, stride_h, stride_w, n, h, w, fill, rows_a, rows_b, seg_w, win,
     # threads, groups, stream
+    # luma_blur_rotate_resident: x, out, taps, p, k1, f1, k2, f2, stride_h,
+    # stride_w, n, h, w, fill, cluster, stream
     "luma_blur_rotate": {"luma_blur_rotate": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
-                                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P)},
+                                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                         "luma_blur_rotate_resident": (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                                                       _I, _I, _I, _I, _I, _P)},
     # x, out, taps, p, k1, f1, k2, f2, stride_h, stride_w, n, h, w, c, fill,
     # strict, grayscale, identity, identity_stride, tile_rows_log2,
     # tile_cols_log2, chunk_rows, max_r1, max_c2, max_c1, smem_bytes, batch, stream
@@ -73,7 +77,9 @@ SIGNATURES = {
 #: kernel launches, by kernel: each wrapper call that launches its CUDA
 #: kernel (or kernel pair) adds one. One dict for every wrapper module;
 #: ``megakernel.LAUNCHES`` is the same object. The luma kernel counts under
-#: "luma_blur_rotate_packed" below 128 rows (whole images, several a block), and the
+#: "luma_blur_rotate_packed" below 128 rows (whole images, several a block),
+#: a luma call on the resident route (one launch, S1 in a cluster's shared
+#: memory) also under "luma_blur_rotate_resident", and the
 #: blur-rotate kernels under "*_traced" when their shifts are per image
 #: (the counterparts of the per-image-angle Pallas kernels). The library
 #: shear_rows counts under the Pallas entry point it carries:
@@ -84,7 +90,8 @@ SIGNATURES = {
 #: blur_separable as "blur_separable" (one radius, from blur_separable and
 #: blur_to_sheared_rows) or "blur_separable_batched" (one radius an image).
 LAUNCHES = {
-    "luma_blur_rotate": 0, "luma_blur_rotate_packed": 0, "rgb_blur_rotate": 0,
+    "luma_blur_rotate": 0, "luma_blur_rotate_packed": 0, "luma_blur_rotate_resident": 0,
+    "rgb_blur_rotate": 0,
     "luma_blur_rotate_traced": 0, "rgb_blur_rotate_traced": 0, "shear_bicubic": 0,
     "shear_rows_logrouted": 0, "zoom_bilinear": 0, "pil_rotate_nearest": 0,
     "blur_separable": 0, "shear_rows": 0, "shear_rows_per_image": 0,

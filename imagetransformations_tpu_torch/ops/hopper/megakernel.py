@@ -10,9 +10,11 @@ version, which repeats the kernel's arithmetic op for op. The rgb kernel
 is one launch a call: a block an output tile, which stages the source
 footprint of its tile in shared memory; the host sizes that from a bound
 on the shift slopes (``_tiling``; the footprint rule is mirrored in
-``tile_footprint`` and ``footprint_bound``). The luma kernel is two
-streaming launches over bands of whole rows with one f32 plane between
-them; the host picks their geometry from the shapes alone
+``tile_footprint`` and ``footprint_bound``). The luma kernel has two
+routes with the same bytes, which the host picks from the shapes alone:
+one launch with the f32 plane S1 in a thread-block cluster's shared memory
+wherever it fits (``_resident_geometry``), else two streaming launches over
+bands of whole rows with S1 in device memory between them
 (``_luma_geometry``; the kernel's window rule is mirrored in
 ``luma_windows``).
 
@@ -50,9 +52,11 @@ from imagetransformations_tpu_torch.ops.stencil import (
 from imagetransformations_tpu_torch.utils import profiling
 
 #: kernel launches, by kernel (the package-wide counters of ``_lib``): each
-#: wrapper call that launches its kernel (the luma kernel: its row launch
-#: and column launch) adds one, under "*_traced" when the shifts are per
-#: image and the luma kernel under "luma_blur_rotate_packed" below 128 rows.
+#: wrapper call that launches its kernel (the luma kernel: its one resident
+#: launch, or its row launch and column launch) adds one, under "*_traced"
+#: when the shifts are per image and the luma kernel under
+#: "luma_blur_rotate_packed" below 128 rows; a luma call that took the
+#: resident route adds one to "luma_blur_rotate_resident" besides.
 LAUNCHES = _lib.LAUNCHES
 
 _LUMA_WEIGHTS = (19595, 38470, 7471)  # PIL L24 weights of R, G, B
@@ -218,6 +222,57 @@ def luma_windows(k1_band, x0: int, x1: int, w: int, win: int) -> list:
         out.append((ya, yb, c0, c1))
         ya = yb
     return out
+
+
+# ---------------------------------------------------- luma kernel's clusters
+#
+# Where an image's f32 plane S1 fits the shared memory of a thread-block
+# cluster, csrc/luma_blur_rotate.cu runs one launch instead (the resident
+# route): a cluster of C blocks of 16 warps an image, block r holding S1 rows
+# [r*ceil(h/C), (r+1)*ceil(h/C)) on chip; pass 2 reads each S1 row from the
+# block that owns it. The functions below mirror its layout and pick C from
+# the shapes alone.
+
+_RESIDENT_CLUSTERS = (1, 2, 4, 8, 16)  # blocks a cluster, least first (16: non-portable)
+_RESIDENT_BLOCKS_PER_SM = 2  # sought first, so one image's phase B overlaps another's phase A
+_RESIDENT_MAX_W = 512  # a lane loads 4 column quads of a source row (128 * kQuads)
+
+
+class ResidentGeometry(NamedTuple):
+    """Launch geometry of the luma kernel's resident route: blocks a
+    cluster (one image a cluster)."""
+
+    cluster: int
+
+
+def _resident_smem(h: int, w: int, p: int, g: ResidentGeometry) -> int:
+    """Shared bytes of a block of the resident route (the layout of
+    ``resident_layout`` in csrc/luma_blur_rotate.cu): the bands (the B,
+    then the S2 rows, with fill columns), the tables, the row pointers and
+    the plane (the slab's rows + 2p X rows, then its S1 rows)."""
+    slab = -(-h // g.cluster)
+    bands = _up(slab * (w + 2) + 1, 4)
+    tables = 2 * _up(slab, 4) + _up(2 * p + 1, 4) + 3 * _up(w, 4) + 2 * _up(h + 2, 4)
+    plane = (slab + 2 * p) * (_up(w, 4) + _up(2 * p, 4))
+    return 4 * (bands + tables + plane)
+
+
+@functools.lru_cache(maxsize=256)
+def _resident_geometry(h: int, w: int, p: int) -> ResidentGeometry | None:
+    """The resident route's geometry, from the shapes alone: the least
+    cluster at which ``_RESIDENT_BLOCKS_PER_SM`` blocks fit an SM's shared
+    memory, else the least at which one does; None (the band route) below
+    ``_PACKED_ROWS`` rows, above ``_RESIDENT_MAX_W`` columns, or where no
+    cluster holds the plane."""
+    if h < _PACKED_ROWS or w > _RESIDENT_MAX_W or p > min(h, w) - 1:
+        return None
+    for blocks in (_RESIDENT_BLOCKS_PER_SM, 1):
+        for cluster in _RESIDENT_CLUSTERS:
+            g = ResidentGeometry(cluster)
+            smem = _resident_smem(h, w, p, g)
+            if smem <= _SMEM_MAX and _SM_SMEM // (smem + 1024) >= blocks:
+                return g
+    return None
 
 
 # ------------------------------------------------- rgb kernel's tile footprint
@@ -562,9 +617,13 @@ def luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, *,
                      geometry=None) -> torch.Tensor:
     """Grayscale-first blur -> rotation: NHWC u8 RGB -> NHWC u8 (luma x 3).
 
-    On CUDA: ``csrc/luma_blur_rotate.cu``, two launches with an f32 plane
-    between them, in ``geometry`` (a ``LumaGeometry``; None: the host's
-    ``_luma_geometry``); on the CPU: the plain version."""
+    On CUDA: ``csrc/luma_blur_rotate.cu``. ``geometry`` None: the host's
+    choice from the shapes, the resident route (one launch, S1 in a
+    cluster's shared memory; ``_resident_geometry``) where the plane fits a
+    cluster, else the band route (two launches with an f32 plane S1 in
+    device memory between them; ``_luma_geometry``). A ``ResidentGeometry``
+    forces the resident route, any other geometry (a ``LumaGeometry``) the
+    band route. On the CPU: the plain version."""
     if x.device.type == "cpu":
         return luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill)
     _check_cuda(x, taps, k1, f1, k2, f2)
@@ -576,20 +635,30 @@ def luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill: int = 0, *,
     if not 0 <= int(fill) <= 255:
         raise ValueError(f"fill must be a u8 value, got {fill}")
     sh, sw = _shift_strides(k1, k2, n)
-    g = _luma_geometry(h, w, p) if geometry is None else LumaGeometry(*geometry)
+    if geometry is None:
+        g = _resident_geometry(h, w, p) or _luma_geometry(h, w, p)
+    elif isinstance(geometry, ResidentGeometry):
+        g = geometry
+    else:
+        g = LumaGeometry(*geometry)
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     name = "luma_blur_rotate"
     lib = _lib.load(name)
+    args = (taps.data_ptr(), p, k1.data_ptr(), f1.data_ptr(), k2.data_ptr(), f2.data_ptr(),
+            sh, sw, n, h, w, int(fill))
     with torch.cuda.device(x.device):
-        s1 = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
-        err = lib.luma_blur_rotate(
-            x.data_ptr(), s1.data_ptr(), out.data_ptr(), taps.data_ptr(), p,
-            k1.data_ptr(), f1.data_ptr(), k2.data_ptr(), f2.data_ptr(), sh, sw,
-            n, h, w, int(fill), *g, torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if isinstance(g, ResidentGeometry):
+            err = lib.luma_blur_rotate_resident(x.data_ptr(), out.data_ptr(), *args, *g, stream)
+        else:
+            s1 = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
+            err = lib.luma_blur_rotate(x.data_ptr(), s1.data_ptr(), out.data_ptr(), *args, *g,
+                                       stream)
     _lib.check(name, err)
+    if isinstance(g, ResidentGeometry):
+        LAUNCHES["luma_blur_rotate_resident"] += 1
     if sh:
         LAUNCHES["luma_blur_rotate_traced"] += 1
     else:

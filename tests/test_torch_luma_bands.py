@@ -18,10 +18,21 @@ per-image tables, the oracle ``fused_stream_chain`` and the JAX
 ``fused_blur_rotate_image`` / ``fused_blur_rotate_batched`` (Pallas in
 interpret mode) within the budget of tests/test_torch_megakernel.py.
 
+From 128 rows on, where the plane fits a thread-block cluster's shared
+memory, the host takes the resident route instead
+(``megakernel._resident_geometry``): one launch, a cluster of C blocks an
+image, block r holding S1 rows [r*ceil(h/C), (r+1)*ceil(h/C)) on chip,
+each built from its own reflected halo rows; pass 2 reads each S1 row from
+the block that owns it. A torch model of that decomposition must equal the
+plain version at 0 LSB too, and the route choice follows from (h, w, p).
+
 On the card (the ``cuda`` marker; skipped without one): the kernel against
 its plain version at 0 LSB in the same cases and geometries, more than
 65535 images at an odd ``data_ptr``, the packed shapes, a width that needs
-column segments, and per-image angles at the budget's edge. Run there with
+column segments, and per-image angles at the budget's edge; the resident
+route at the chain's 1024x224x224, at 8x512x512, at odd shapes at the
+route's edges, at an odd ``data_ptr``, at per-image angles and at every
+angle of ``ANGLES``, each also bit-equal to the band route. Run there with
 ``python -m pytest tests/test_torch_luma_bands.py -q``.
 """
 
@@ -217,6 +228,119 @@ def test_windows_cover_every_tap():
         assert ya_next == len(k1)
 
 
+def _resident_model(x, taps, p, k1, f1, k2, f2, fill: int, cluster: int) -> torch.Tensor:
+    """Torch model of the resident route: per image, ``cluster`` slabs of
+    ceil(h / cluster) S1 rows, each computed from a luma plane that is NaN
+    outside the slab's reflected source rows [y0 - p, y1 + p); pass 2 reads
+    each S1 row only through the slab that owns it. Returns u8 [n, h, w, 3]."""
+    n, h, w, _ = x.shape
+    xi = x.to(torch.int32)
+    lum = ((xi[..., 1] * 38470 + xi[..., 0] * 19595) + xi[..., 2] * 7471).to(torch.float32)
+    lum = lum * (1.0 / 65536.0)
+    rows = -(-h // cluster)
+    out = torch.zeros((n, h, w), dtype=torch.uint8)
+    fillf = float(fill)
+    for img in range(n):
+        ka, fa, kc, fc = [v if v.ndim == 1 else v[img] for v in (k1, f1, k2, f2)]
+        ka, kc = ka.to(torch.int64), kc.to(torch.int64)
+        slabs = []
+        for r in range(cluster):  # phase A: each block's slab from its own halo rows
+            y0, y1 = r * rows, min((r + 1) * rows, h)
+            if y1 <= y0:
+                slabs.append(torch.empty((0, w)))
+                continue
+            src = _reflect(torch.arange(y0 - p, y1 + p), h)
+            staged = torch.full((h, w), float("nan"))
+            staged[src] = lum[img][src]
+            b = mk._blur_along(mk._blur_along(staged[None, None], taps, p, 3), taps, p, 2)
+            b = b[0, 0, y0:y1]
+            assert bool(torch.isfinite(b).all()), "the blur read outside the slab's rows"
+            buf = torch.full((y1 - y0, w + 2), fillf)
+            buf[:, 1:w + 1] = b
+            xs = torch.arange(w)[None, :] + ka[y0:y1, None]
+            slabs.append(mk._lerp(_take(buf, xs.clamp(-1, w) + 1), _take(buf, (xs + 1).clamp(-1, w) + 1),
+                                  fa[y0:y1, None]))
+        cols = torch.arange(w)[None, :].expand(h, w)
+
+        def tap(ys):  # S1[ys, c] through the slab that owns row ys; fill off the canvas
+            inside = (ys >= 0) & (ys < h)
+            yc = ys.clamp(0, h - 1)
+            owner, local = yc // rows, yc % rows
+            got = torch.empty(ys.shape)
+            for r in range(cluster):
+                m = owner == r
+                if bool(m.any()):
+                    got[m] = slabs[r][local[m], cols[m]]
+            return torch.where(inside, got, fillf)
+
+        ys = torch.arange(h)[:, None] + kc[None, :]
+        s2 = mk._lerp(tap(ys), tap(ys + 1), fc[None, :])  # phase B: pass 2
+        buf = torch.full((h, w + 2), fillf)
+        buf[:, 1:w + 1] = s2
+        xs = torch.arange(w)[None, :] + ka[:, None]
+        s3 = mk._lerp(_take(buf, xs.clamp(-1, w) + 1), _take(buf, (xs + 1).clamp(-1, w) + 1),
+                      fa[:, None])
+        out[img] = (s3 + 0.5).to(torch.int32).clamp(0, 255).to(torch.uint8)
+    return out[..., None].expand(n, h, w, 3).contiguous()
+
+
+def _resident_cases():
+    """(shape, p, angle, fill, cluster, per-image angles or None): clusters
+    1, 2 and 4 over the angles, p, the shapes and fill cycled; per-image
+    tables at each cluster size."""
+    out = []
+    for i, cluster in enumerate((1, 2, 4)):
+        for j, angle in enumerate(ANGLES):
+            k = i * len(ANGLES) + j
+            out.append((SHAPES[k % 2], (0, 4, 7)[k % 3], angle, (0, 255)[(k // 2) % 2], cluster,
+                        None))
+        out.append(((3, 37, 29), (4, 7, 0)[i], None, 9, cluster, [-150.0, 22.5, 0.0]))
+    return out
+
+
+@pytest.mark.parametrize("shape,p,angle,fill,cluster,traced", _resident_cases())
+def test_cluster_slabs_equal_plain(rng, shape, p, angle, fill, cluster, traced):
+    x = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8))
+    taps, p_, k1, f1, k2, f2 = _params(x, RADII[p], angle, traced)
+    assert p_ == p
+    got = _resident_model(x, taps, p, k1, f1, k2, f2, fill, cluster)
+    assert torch.equal(got, mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill))
+
+
+@pytest.mark.parametrize("shape,p,route", [
+    ((224, 224), 4, "resident"),
+    ((224, 224), 7, "resident"),
+    ((128, 301), 4, "resident"),
+    ((223, 227), 4, "resident"),
+    ((512, 512), 4, "resident"),  # one block an SM, clusters of 16
+    ((900, 500), 4, "band"),  # no cluster holds the plane
+    ((127, 224), 4, "band"),  # below 128 rows: the packed shapes keep the band route
+    ((32, 32), 4, "band"),
+    ((2000, 2000), 4, "band"),  # beyond what a cluster holds
+    ((130, 2600), 7, "band"),
+])
+def test_route_from_the_shapes(shape, p, route):
+    """The host's route from (h, w, p) alone: the resident route's geometry
+    fits a block's shared memory, with two blocks an SM where any cluster
+    allows it, and it is the least cluster that reaches that count."""
+    h, w = shape
+    g = mk._resident_geometry(h, w, p)
+    assert (g is not None) == (route == "resident")
+    if g is None:
+        assert isinstance(mk._luma_geometry(h, w, p), mk.LumaGeometry)
+        return
+
+    def blocks(c):  # blocks of cluster size c that fit an SM (0: none fits)
+        s = mk._resident_smem(h, w, p, mk.ResidentGeometry(c))
+        return 0 if s > 232448 else mk._SM_SMEM // (s + 1024)
+
+    most = max(min(blocks(c), 2) for c in mk._RESIDENT_CLUSTERS)
+    assert min(blocks(g.cluster), 2) == most >= 1
+    assert all(min(blocks(c), 2) < most for c in mk._RESIDENT_CLUSTERS if c < g.cluster)
+    if (h, w, p) == (224, 224, 4):
+        assert g == mk.ResidentGeometry(4)
+
+
 def _jax():
     """The JAX package's oracle and kernels (imported here: the card tests
     below run where only PyTorch is installed)."""
@@ -355,3 +479,75 @@ def test_per_image_angles_at_the_budget_edge(rng, cuda, shape):
     k1, f1, k2, f2, _ = mk._traced_params(angles, n, h, w, 22.5, cuda)
     assert torch.equal(out, mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0))
     _kernel_vs_plain(x, 1.5, None, 0, traced=angles)
+
+
+def _resident_vs_plain_and_bands(x, radius, angle, fill, traced=None, geometry=None):
+    """The resident route (the host's, or ``geometry``) against the plain
+    version and against the band route at the host's band geometry."""
+    n, h, w, _ = x.shape
+    dev = x.device
+    if traced is None:
+        taps, p, k1, f1, k2, f2 = mk._params(h, w, radius, angle, dev)
+    else:
+        taps, p = mk._params(h, w, radius, 0.0, dev)[:2]
+        k1, f1, k2, f2, _ = mk._traced_params(np.asarray(traced, np.float32), n, h, w, 180.0,
+                                              dev)
+    assert geometry is not None or mk._resident_geometry(h, w, p) is not None
+    before = dict(mk.LAUNCHES)
+    got = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill, geometry=geometry)
+    key = "luma_blur_rotate_traced" if traced is not None else "luma_blur_rotate"
+    assert mk.LAUNCHES["luma_blur_rotate_resident"] == before["luma_blur_rotate_resident"] + 1
+    assert mk.LAUNCHES[key] == before[key] + 1
+    bands = mk.luma_blur_rotate(x, taps, p, k1, f1, k2, f2, fill,
+                                geometry=mk._luma_geometry(h, w, p))
+    torch.cuda.synchronize()
+    assert torch.equal(got, mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, fill))
+    assert torch.equal(got, bands)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,radius,angle,fill", [
+    ((1024, 224, 224), 1.5, 15.0, 0),  # the chain cell's call
+    ((8, 512, 512), 1.5, 15.0, 0),  # clusters of 16, one block an SM
+    ((3, 128, 301), 2.5, -30.0, 255),  # the route's edges: 128 rows, odd widths
+    ((3, 128, 512), 1.5, 15.0, 0),  # 128 rows of the widest row it takes
+    ((3, 223, 227), 1.5, 135.0, 7),
+    ((2, 224, 224), 5.0, 179.9, 255),  # p 15: any p, its taps from shared memory
+])
+def test_resident_route_on_the_card(rng, cuda, shape, radius, angle, fill):
+    x = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(cuda)
+    _resident_vs_plain_and_bands(x, radius, angle, fill)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("angle", ANGLES)
+def test_resident_route_at_every_angle(rng, cuda, angle):
+    x = torch.from_numpy(rng.integers(0, 256, (4, 224, 224, 3), dtype=np.uint8)).to(cuda)
+    _resident_vs_plain_and_bands(x, 1.5, angle, 0 if angle < 60 else 255)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_resident_geometries_at_an_odd_data_ptr(rng, cuda, cluster):
+    """Other clusters give the same bytes, from a batch and into an output
+    that start at odd addresses."""
+    n, h, w = 3, 160, 149
+    base = torch.from_numpy(rng.integers(0, 256, (n * h * w * 3 + 1,), dtype=np.uint8)).to(cuda)
+    x = base[1:].view(n, h, w, 3)
+    assert x.data_ptr() % 2 == 1
+    _resident_vs_plain_and_bands(x, 1.5, 33.0, 9, geometry=mk.ResidentGeometry(cluster))
+
+
+@pytest.mark.cuda
+def test_resident_per_image_angles_at_the_budget_edge(rng, cuda):
+    n = 8
+    x = torch.from_numpy(rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)).to(cuda)
+    angles = np.where(np.arange(n) % 2 == 0, 22.5, -22.5).astype(np.float32)
+    angles[1] = 0.0
+    _resident_vs_plain_and_bands(x, 1.5, None, 0, traced=angles)
+    before = mk.LAUNCHES["luma_blur_rotate_resident"]
+    out = mk.fused_blur_rotate_batched(x, 1.5, angles, grayscale_out=True, stream=True)
+    assert mk.LAUNCHES["luma_blur_rotate_resident"] == before + 1
+    taps, p = mk._params(224, 224, 1.5, 0.0, cuda)[:2]
+    k1, f1, k2, f2, _ = mk._traced_params(angles, n, 224, 224, 22.5, cuda)
+    assert torch.equal(out, mk.luma_blur_rotate_plain(x, taps, p, k1, f1, k2, f2, 0))
