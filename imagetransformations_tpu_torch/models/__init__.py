@@ -1,7 +1,8 @@
 """The classifiers (PyTorch, NCHW): the JAX package's ``models`` names.
 
 ``load_torch_state_dict`` and its aliases load a reference checkpoint's
-state_dict by key (the port's parameter names are the checkpoints' own);
+state_dict by key (the port's parameter names are the checkpoints' own;
+a torchvision ``swin_*`` dict through ``SwinTransformer.torchvision_key``);
 ``from_flax`` carries parameters across from the JAX package.
 """
 
@@ -18,6 +19,7 @@ from imagetransformations_tpu_torch.models.imagenet import (  # noqa: F401
     ResNet18,
     normalize_imagenet,
 )
+from imagetransformations_tpu_torch.models.swin import SwinB, SwinTransformer  # noqa: F401
 from imagetransformations_tpu_torch.models.convert import (  # noqa: F401
     from_flax,
     load_torch_state_dict,

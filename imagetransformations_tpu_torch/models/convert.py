@@ -131,7 +131,11 @@ def load_torch_state_dict(model: nn.Module, state: dict) -> nn.Module:
     """Load a torch state_dict (tensors or numpy arrays) by key: the port's
     names are the reference checkpoints' (chenyaofo's CIFAR ResNets,
     torchvision's ResNets and VGG), so the JAX importers' renaming is the
-    identity here. Returns ``model``."""
-    model.load_state_dict({k: torch.as_tensor(v) if isinstance(v, torch.Tensor)
-                           else torch.from_numpy(np.array(v)) for k, v in state.items()})
+    identity here. A model with a ``torchvision_key`` map (Swin: ``head.*``
+    -> ``fc.*``, the relative-position index dropped) renames each key
+    first. Returns ``model``."""
+    rename = getattr(model, "torchvision_key", lambda k: k)
+    model.load_state_dict({rename(k): torch.as_tensor(v) if isinstance(v, torch.Tensor)
+                           else torch.from_numpy(np.array(v))
+                           for k, v in state.items() if rename(k) is not None})
     return model

@@ -52,6 +52,7 @@ ARCHS = {
     "resnet18": (lambda d: pm.ResNet18(device=d), 224, 2),
     "resnet50": (lambda d: pm.ResNet50(device=d), 224, 2),
     "vgg19_bn": (lambda d: pm.VGG19BN(device=d), 224, 1),
+    "swin_b": (lambda d: pm.SwinB(device=d), 224, 2),
 }
 
 
