@@ -12,6 +12,11 @@ loads with ``load_state_dict`` and the JAX importers read ``state_dict()``.
 Like the JAX ``VGG19BN``, and unlike torchvision's, the VGG has no
 ``AdaptiveAvgPool2d((7, 7))``: ``fc1`` takes ``512 * (h/32) * (w/32)``
 inputs flattened CHW, sized from ``input_size`` (224 by default).
+
+On a CUDA device the ResNets run their stages NCHW-contiguous
+(``_layers.body_layout``), so that cuDNN's true-f32 convolutions do not
+transpose their inputs and outputs; the arithmetic stays that of the
+channels-last forward.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from torch import nn
 
 from imagetransformations_tpu_torch.core.image import entry_device
 from imagetransformations_tpu_torch.core.precision import full_f32
-from imagetransformations_tpu_torch.models._layers import BatchNorm, dropout, init_like_flax
+from imagetransformations_tpu_torch.models._layers import (BatchNorm, body_layout, dropout,
+                                                            init_like_flax, mean_pool)
 from imagetransformations_tpu_torch.models.resnet import normalize, to_unit
 
 #: torchvision ImageNet normalization
@@ -120,11 +126,11 @@ class _ResNet(nn.Module):
     def backbone(self, x, train: bool = False):
         with full_f32():
             x = torch.relu(self.bn1(self.conv1(x), train))
-            x = F.max_pool2d(x, 3, 2, 1)
+            x = body_layout(F.max_pool2d(x, 3, 2, 1))
             for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
                 for block in stage:
                     x = block(x, train)
-            return x.mean(dim=(2, 3))  # [N, 2048] (ResNet-50) or [N, 512]
+            return mean_pool(x)  # [N, 2048] (ResNet-50) or [N, 512]
 
     def forward(self, x, train: bool = False):
         feats = self.backbone(x, train)

@@ -15,7 +15,9 @@ downsample.0|downsample.1``, ``fc``), so a hub state_dict loads with
 pipeline/metrics/dknn2.py:109-120). ``mc=True`` inserts flax-style dropout
 after each block, its mask drawn from the caller's ``torch.Generator``
 (MC dropout, pipeline/metrics/mutual_info.py:35-41). Every forward runs in
-true f32 (``core.precision.full_f32``).
+true f32 (``core.precision.full_f32``); on a CUDA device the blocks run
+NCHW-contiguous (``_layers.body_layout``), with the arithmetic of the
+channels-last forward.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from torch import nn
 
 from imagetransformations_tpu_torch.core.image import entry_device
 from imagetransformations_tpu_torch.core.precision import full_f32
-from imagetransformations_tpu_torch.models._layers import BatchNorm, dropout, init_like_flax
+from imagetransformations_tpu_torch.models._layers import (BatchNorm, body_layout, dropout,
+                                                            init_like_flax, mean_pool)
 
 
 def conv3x3(cin: int, cout: int, stride: int = 1, device=None) -> nn.Conv2d:
@@ -84,12 +87,12 @@ class CifarResNet(nn.Module):
     def backbone(self, x, train: bool = False, mc: bool = False,
                  generator: torch.Generator | None = None):
         with full_f32():
-            x = torch.relu(self.bn1(self.conv1(x), train))
+            x = body_layout(torch.relu(self.bn1(self.conv1(x), train)))
             for block in self._blocks():
                 x = block(x, train)
                 if mc:
                     x = dropout(x, self.dropout_rate, generator)
-            return x.mean(dim=(2, 3))  # global average pool -> [N, 64]
+            return mean_pool(x)  # [N, 64]
 
     def forward(self, x, train: bool = False, mc: bool = False,
                 generator: torch.Generator | None = None):
